@@ -1,0 +1,8 @@
+from pct_tpu_torch.fit.eigh3 import eigh3, eigvalsh3, smallest_eigvec3  # noqa: F401
+from pct_tpu_torch.fit.frames import (  # noqa: F401
+    estimate_normals,
+    neighborhood_covariance,
+    rodrigues_to_z,
+    tangent_frames,
+)
+from pct_tpu_torch.fit.quadratic import cholesky_solve, fit_quadratic  # noqa: F401

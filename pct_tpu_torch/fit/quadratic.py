@@ -1,0 +1,83 @@
+"""Batched explicit-quadratic (Monge patch) least-squares fit.
+
+Port of ``pct_tpu.fit.quadratic``: z = A a² + B b² + C ab + D a + E b + F
+over the rotated neighborhood (the reference's ``fit_quadratic_surface``
+lstsq), solved as scaled 6×6 normal equations with a tiny relative ridge
+and an unrolled Cholesky. The Gram matrix and right-hand side are 21 + 6
+elementwise k-axis reductions, not batched matmuls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_RIDGE = 1e-7
+
+
+def cholesky_solve(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Batched symmetric-positive-definite n×n solve, fully unrolled
+    (n from the trailing shape). A pivot that collapses (exactly
+    singular G, e.g. collinear lattice neighborhoods) drops its
+    component to 0, like lstsq's min-norm solution, instead of NaN."""
+    n = G.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    invd = [None] * n
+    for j in range(n):
+        s = G[..., j, j]
+        for t in range(j):
+            s = s - L[j][t] * L[j][t]
+        dead = s < 1e-10 * torch.abs(G[..., j, j]) + 1e-30
+        L[j][j] = torch.sqrt(torch.clamp_min(s, 1e-30))
+        invd[j] = torch.where(dead, 0.0, 1.0 / L[j][j])
+        for i in range(j + 1, n):
+            s = G[..., i, j]
+            for t in range(j):
+                s = s - L[i][t] * L[j][t]
+            L[i][j] = s * invd[j]
+    y = [None] * n
+    for i in range(n):
+        s = rhs[..., i]
+        for t in range(i):
+            s = s - L[i][t] * y[t]
+        y[i] = s * invd[i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for t in range(i + 1, n):
+            s = s - L[t][i] * x[t]
+        x[i] = s * invd[i]
+    return torch.stack(x, dim=-1)
+
+
+def fit_quadratic(rotated: torch.Tensor) -> torch.Tensor:
+    """(..., k, 3) rotated neighborhoods -> (..., 6) coefficients
+    [A, B, C, D, E, F].
+
+    Each tangent axis is scaled to unit extent first (lattice-sampled
+    scans have strongly elliptical neighborhoods), z is left unscaled,
+    and the coefficients are unscaled afterwards.
+    """
+    sa = torch.sqrt(torch.clamp_min(
+        torch.max(rotated[..., 0] ** 2, dim=-1).values, 1e-20))[..., None]
+    sb = torch.sqrt(torch.clamp_min(
+        torch.max(rotated[..., 1] ** 2, dim=-1).values, 1e-20))[..., None]
+    a = rotated[..., 0] / sa
+    b = rotated[..., 1] / sb
+    cols = [a * a, b * b, a * b, a, b, torch.ones_like(a)]
+    z = rotated[..., 2]
+    Gq = [[None] * 6 for _ in range(6)]
+    for i in range(6):
+        for j in range(i, 6):
+            Gq[i][j] = Gq[j][i] = torch.sum(cols[i] * cols[j], dim=-1)
+    rhs = torch.stack([torch.sum(cols[i] * z, dim=-1) for i in range(6)],
+                      dim=-1)
+    G = torch.stack([torch.stack(Gq[i], dim=-1) for i in range(6)], dim=-2)
+    trace = G.diagonal(dim1=-2, dim2=-1).sum(-1)
+    eye = torch.eye(6, dtype=G.dtype, device=G.device)
+    G = G + (_RIDGE * trace[..., None, None] / 6.0) * eye
+    c = cholesky_solve(G, rhs)
+    scale_back = torch.cat([
+        1.0 / (sa * sa), 1.0 / (sb * sb), 1.0 / (sa * sb),
+        1.0 / sa, 1.0 / sb, torch.ones_like(sa),
+    ], dim=-1)
+    return c * scale_back

@@ -1,0 +1,489 @@
+"""Cell-centric kNN: the explicit-curvature cell loop (main-path subset).
+
+Port of the parts of ``pct_tpu.neighbors.cellknn`` that
+``fast_curvature(k < 64, method="explicit")`` runs. Queries that share a
+grid cell share their whole candidate set, so the loop runs over
+OCCUPIED CELLS: per cell, the 27-cell neighborhood is fetched once as 9
+contiguous runs of 3 x-adjacent cells (contiguous in the sorted array
+because cell ids linearize x fastest), the select picks each query's k
+nearest, and the caller's ``fn`` runs on the neighborhoods. Cells are
+grouped into occupancy buckets (``probe_grid_buckets``), each with its
+own (capacity, cand_cap) shape, so padding tracks each cell's size.
+Exactness is certified per query (coverage radius, candidate budget,
+cell-table overflow) exactly as in the JAX package.
+
+Left out, because only the TPU needs them: the Mosaic VMEM and
+compile-time model (``_select_scoped_bytes``, ``_select_plan``,
+``_SELECT_COMPILE_HAZARD``, ``pallas_select_ok``, the guards' select
+demotion), packed candidate rows (``_cand_pack``: the port always
+fetches one point per row, pack=1), the XLA expanded-distance select
+and the "slab"/"invert_late" output moves.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from pct_tpu_torch.neighbors.grid import MAXDIM, PAD_ID, GridIndex
+from pct_tpu_torch.ops.select import knn_select_coords
+
+_I32 = torch.int32
+
+
+class CellTable(NamedTuple):
+    """Compaction of occupied cells (statically sized at max_cells)."""
+    cell_id: torch.Tensor     # (MC,) linearized id, PAD_ID beyond num_cells
+    start: torch.Tensor       # (MC,) first sorted row of the cell
+    count: torch.Tensor       # (MC,) points in the cell
+    num_cells: torch.Tensor   # () int32
+    overflow: torch.Tensor    # () bool — more occupied cells than MC
+    max_count: torch.Tensor   # () int32 — fullest cell
+
+
+def _scatter_drop(size: int, fill, idx: torch.Tensor, vals: torch.Tensor):
+    """``full(size, fill).at[idx].set(vals, mode="drop")`` for indices in
+    [0, size]: index ``size`` is a scratch slot that is cut off, so the
+    only duplicate indices land there and the result is deterministic."""
+    out = torch.full((size + 1,) + vals.shape[1:], fill, dtype=vals.dtype,
+                     device=vals.device)
+    out[idx.long()] = vals
+    return out[:size]
+
+
+def compact_cells(grid: GridIndex, max_cells: int) -> CellTable:
+    ids = grid.sorted_ids
+    n = ids.shape[0]
+    dev = ids.device
+    prev = torch.cat([ids.new_full((1,), -1), ids[:-1]])
+    is_first = (ids != prev) & (ids != PAD_ID)
+    rank = torch.cumsum(is_first.to(_I32), 0, dtype=_I32) - 1
+    num_valid = torch.sum(ids != PAD_ID, dtype=_I32)
+    num_cells = torch.where(num_valid > 0, rank[n - 1] + 1, 0).to(_I32)
+    # rank may exceed MC on pathological clouds -> drop + flag
+    slot = torch.where(is_first, torch.clamp_max(rank, max_cells), max_cells)
+    start = _scatter_drop(max_cells, n, slot,
+                          torch.arange(n, dtype=_I32, device=dev))
+    cell_id = _scatter_drop(max_cells, PAD_ID, slot, ids)
+    nxt = torch.cat([start[1:], start.new_full((1,), n)])
+    c = torch.arange(max_cells, dtype=_I32, device=dev)
+    end = torch.where(c + 1 < num_cells, nxt, num_valid)
+    count = torch.where(c < num_cells, end - start, 0).to(_I32)
+    return CellTable(cell_id, start, count, num_cells,
+                     torch.any(rank > max_cells - 1), torch.max(count))
+
+
+def _decode(cell_id: torch.Tensor):
+    ix = cell_id % MAXDIM
+    iy = (cell_id // MAXDIM) % MAXDIM
+    iz = cell_id // (MAXDIM * MAXDIM)
+    return ix, iy, iz
+
+
+def _budget_overflow(run_len: torch.Tensor, cand_cap: int) -> torch.Tensor:
+    """(...,) bool: the cell's total candidate count exceeds the budget
+    (trailing candidates are then dropped — certificate void)."""
+    return torch.sum(run_len, dim=-1) > cand_cap
+
+
+def _clip_runs(run_len: torch.Tensor, cand_cap: int) -> torch.Tensor:
+    """Clip the 9 run lengths so their TOTAL fits the budget: run i keeps
+    min(len_i, max(0, cand_cap - Σ_{j<i} len_j)). Greedy front-to-back."""
+    excl = torch.cumsum(run_len, -1, dtype=_I32) - run_len
+    return torch.minimum(torch.clamp_min(cand_cap - excl, 0), run_len)
+
+
+def _run_layout(run_len: torch.Tensor):
+    """Contiguous layout of the 9 candidate runs along the M axis (one
+    point per slot): (Px (..., 10) exclusive prefix of run lengths,
+    tot (...,) total length)."""
+    incl = torch.cumsum(run_len, -1, dtype=_I32)
+    Px = torch.cat([torch.zeros_like(incl[..., :1]), incl], dim=-1)
+    return Px, incl[..., -1]
+
+
+DENSE_CELLS = 1 << 23    # dense boundary-map budget (32 MB int32): grids
+# whose bbox holds more cell boxes take the sorted search
+
+
+def _runs_table(grid: GridIndex, cells: CellTable):
+    """Candidate-run table for every cell of the table.
+
+    A run boundary is the start row of the first OCCUPIED cell at/past a
+    wanted id. When the grid's cell-box count fits the dense table this
+    is a direct lookup: scatter each occupied cell's start row into a
+    table over compressed keys x + dims0·(y + dims1·z) (start rows are
+    monotone in key), reverse-cummin to fill empty boxes with the next
+    occupied cell's start, then gather every boundary. Larger grids take
+    a searchsorted over the compact table. Boundaries clamp to num_valid
+    so runs never reach into the padding rows.
+
+    Returns (rs (MC,9) int32 run starts, run_len (MC,9) int32 UNCLIPPED).
+    """
+    n = grid.sorted_points.shape[0]
+    dev = grid.sorted_points.device
+    cid = cells.cell_id
+    d0, d1, d2 = grid.dims
+    nv = grid.num_valid
+    pad = cid == PAD_ID
+    ix_a, iy_a, iz_a = _decode(torch.where(pad, 0, cid))
+    dyz = torch.tensor([(dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1)],
+                       dtype=_I32, device=dev)                 # (9, 2)
+    ny_a = iy_a[:, None] + dyz[None, :, 0]
+    nz_a = iz_a[:, None] + dyz[None, :, 1]
+    ok_run_a = ((ny_a >= 0) & (ny_a < d1) & (nz_a >= 0) & (nz_a < d2)
+                & ~pad[:, None])
+    x_lo = torch.clamp_min(ix_a - 1, 0)[:, None]
+    x_hi = torch.clamp_max(ix_a + 1, d0 - 1)[:, None]
+    total = d0 * d1 * d2
+    # static table size: grids with more boxes than ~4·n are so sparse
+    # the sorted search loses nothing (n is the padded cloud size)
+    dense_cap = min(DENSE_CELLS, 1 << (4 * n - 1).bit_length())
+
+    if total <= dense_cap:
+        ckey = ix_a + d0 * (iy_a + d1 * iz_a)
+        table = _scatter_drop(dense_cap, nv, torch.where(pad, dense_cap, ckey),
+                              cells.start)
+        # start rows are monotone in key -> suffix-min = "start of the
+        # first occupied cell at-or-after this box"
+        table = torch.flip(torch.cummin(torch.flip(table, [0]), 0).values, [0])
+        row = d0 * (ny_a + d1 * nz_a)                          # (MC, 9)
+        q_lo = row + x_lo
+        q_hi1 = row + x_hi + 1
+        rs = table[torch.clamp(q_lo, 0, dense_cap - 1).long()]
+        re = table[torch.clamp(q_hi1, 0, dense_cap - 1).long()]
+        # a query one past the LAST box clamps onto an occupied slot: its
+        # true boundary is the end of the valid rows
+        re = torch.where(q_hi1 >= total, nv, re)
+        rs = torch.where(ok_run_a, rs, 0)
+        re = torch.where(ok_run_a, re, 0)
+    else:
+        base_a = ny_a * MAXDIM + nz_a * MAXDIM * MAXDIM        # (MC, 9)
+        start_ext = torch.cat([torch.where(pad, nv, cells.start),
+                               cells.start.new_full((1,), nv)])
+        c_lo = torch.searchsorted(cid, (base_a + x_lo).contiguous())
+        c_hi = torch.searchsorted(cid, (base_a + x_hi + 1).contiguous())
+        rs, re = start_ext[c_lo], start_ext[c_hi]
+    run_len_a = torch.where(ok_run_a, re - rs, 0).to(_I32)
+    return rs.to(_I32), run_len_a
+
+
+def _tile_candidates(grid: GridIndex, args, capacity: int, cand_cap: int):
+    """Candidate fetch + coverage radius for a batch of T cells.
+
+    ``args`` = (cell_id, start, count, rs, run_len, run_overflow), each
+    with a leading cell axis T. The 9 runs are laid out contiguously
+    along the M = cand_cap axis, runs in offset order and rows ascending
+    within a run, so winner sets and first-argmin tie order match the
+    JAX package. Cells whose runs exceed the budget drop trailing
+    candidates (the caller flags them with ``_budget_overflow``).
+
+    Returns (cand (T,M) sorted rows, ok_cand (T,M) bool, cpts (T,M,3),
+    qpts (T,C,3), qrow (T,C), ok_q (T,C), cover (T,C) guaranteed
+    coverage radius, run_overflow (T,)).
+    """
+    n = grid.sorted_points.shape[0]
+    dev = grid.sorted_points.device
+    cell_id, start, count, rs, run_len, run_overflow = args
+    T = cell_id.shape[0]
+    ix, iy, iz = _decode(torch.where(cell_id == PAD_ID, 0, cell_id))
+    ar_c = torch.arange(capacity, dtype=_I32, device=dev)
+    qrow = torch.clamp_max(start[:, None] + ar_c, n - 1)
+    ok_q = ar_c[None, :] < count[:, None]
+
+    run_len = _clip_runs(run_len, cand_cap)
+    Px, tot = _run_layout(run_len)                             # (T,10),(T,)
+    j = torch.arange(cand_cap, dtype=_I32, device=dev).expand(T, cand_cap)
+    # run of each slot: number of runs whose end is <= j (9 = past the end)
+    rj = torch.searchsorted(Px[:, 1:10].contiguous(), j.contiguous(),
+                            right=True)
+    inside = rj < 9
+    rj_c = torch.clamp_max(rj, 8)
+    g0j = torch.where(inside, torch.gather(rs, 1, rj_c), 0)
+    pj = torch.where(inside, torch.gather(Px[:, :9], 1, rj_c), 0)
+    ok_cand = j < tot[:, None]
+    cand = torch.clamp(g0j + (j - pj), 0, n - 1).to(_I32)     # (T, M) rows
+    cpts = grid.sorted_points[cand.long()]                    # (T, M, 3)
+    qpts = grid.sorted_points[qrow.long()]                    # (T, C, 3)
+
+    # --- per-query coverage radius within the 3³ window ---
+    coords = torch.stack([ix, iy, iz], dim=-1)                # (T, 3)
+    dims = torch.tensor(grid.dims, dtype=_I32, device=dev)
+    lo_edge = grid.origin[None, :] + (coords - 1).float() * grid.cell_size
+    hi_edge = grid.origin[None, :] + (coords + 2).float() * grid.cell_size
+    left = torch.where((coords - 1 <= 0)[:, None, :], torch.inf,
+                       qpts - lo_edge[:, None, :])
+    right = torch.where((coords + 1 >= dims - 1)[:, None, :], torch.inf,
+                        hi_edge[:, None, :] - qpts)
+    cover = torch.minimum(left.min(dim=-1).values, right.min(dim=-1).values)
+    return cand, ok_cand, cpts, qpts, qrow, ok_q, cover, run_overflow
+
+
+def _tile_select(grid: GridIndex, args, k: int, capacity: int, cand_cap: int):
+    """Candidate fetch + k-selection for a batch of cells (the JAX
+    package's ``want="coords"``): the select emits the winners'
+    coordinates, so no (T,C,k) winner gather happens.
+
+    Returns (nbrs (T,C,k,3), dists (T,C,k) ascending, found (T,C,k),
+    qpts (T,C,3), qrow (T,C), ok_q (T,C), exact (T,C) certificate).
+    """
+    cand, ok_cand, cpts, qpts, qrow, ok_q, cover, run_overflow = \
+        _tile_candidates(grid, args, capacity, cand_cap)
+    dists, nbrs = knn_select_coords(qpts, cpts, cand, qrow,
+                                    ok_cand.to(_I32), k)
+    found = dists < 1e18     # the select backs missing slots with ~3e38
+    exact = (found[..., k - 1] & (dists[..., k - 1] <= cover)
+             & ~run_overflow[:, None])
+    return nbrs, dists, found, qpts, qrow, ok_q, exact
+
+
+_FIT_QUERIES = 1 << 17   # query slots per chunk of the in-loop fn
+
+
+def cellwise_tile_runner(grid: GridIndex, k: int, capacity: int,
+                         cand_cap: int, fn: Callable):
+    """Body of the fused cell loop for one bucket.
+
+    Returns ``run(args) -> (fn outputs, each (T,C,...), exact (T,C),
+    kth (T,C), qrow (T,C), ok_q (T,C))``: one select over all T cells,
+    then ``fn(centered (t,C,k,3), found (t,C,k))`` in chunks of cells to
+    bound the fit's working memory.
+    """
+    def run(args):
+        nbrs, dists, found, qpts, qrow, ok_q, exact = _tile_select(
+            grid, args, k, capacity, cand_cap)
+        step = max(1, _FIT_QUERIES // capacity)
+        parts = []
+        for s in range(0, nbrs.shape[0], step):
+            centered = nbrs[s:s + step] - qpts[s:s + step, :, None, :]
+            parts.append(fn(centered, found[s:s + step]))
+        out = tuple(torch.cat(xs) for xs in zip(*parts))
+        return out, exact & ok_q, dists[..., k - 1], qrow, ok_q
+
+    return run
+
+
+def _scatter_outputs(n: int, dest: torch.Tensor, out, exact: torch.Tensor,
+                     kth: torch.Tensor):
+    """Move every per-query output to its (n,) destination in one pass.
+
+    All outputs (float32) plus ``exact`` (as a 0/1 column) and ``kth``
+    pack into one (rows, D) slab; a 1-column scatter inverts the row
+    permutation and ONE row gather moves the slab to destination order
+    (the JAX package's "invert" strategy). Uncovered destinations are
+    zero; rows with dest == n are dropped.
+    """
+    rows = exact.shape[0]
+    cols = [exact.to(torch.float32)[:, None], kth[:, None]]
+    cols += [a.reshape(rows, -1) for a in out]
+    slab = torch.cat(cols, dim=1)
+    ridx = _scatter_drop(n, 0, dest,
+                         torch.arange(1, rows + 1, dtype=_I32,
+                                      device=dest.device))
+    src = torch.where(ridx > 0, ridx - 1, rows).long()
+    slab = torch.cat([slab, slab.new_zeros((1, slab.shape[1]))])
+    slab_n = slab[src]
+    res, c = [], 2
+    for a in out:
+        w = math.prod(a.shape[1:])
+        res.append(slab_n[:, c:c + w].reshape((n,) + a.shape[1:]))
+        c += w
+    return tuple(res), slab_n[:, 0] > 0.5, slab_n[:, 1]
+
+
+class BucketSpec(NamedTuple):
+    """Static shape class for one occupancy bucket of the cell loop.
+
+    Cells are partitioned by ``key = max(count, ceil(total_run/27))``,
+    the per-cell size class that correlates both padding axes (query
+    slots and candidate width).
+    """
+    hi_key: int      # bucket takes cells with key in (prev.hi_key, hi_key]
+    capacity: int    # query slots (>= max count among members)
+    cand_cap: int    # candidate budget (>= max summed-9-run length)
+    max_cells: int   # member-table size
+
+
+def _bucket_tables(grid: GridIndex, cells: CellTable, spec):
+    """Partition of the cell table (+ runs) by size class. The last
+    bucket also absorbs any key above its threshold. Returns per bucket
+    (cid, start, count, rs, run_len_unclipped, lost) with ``max_cells``
+    rows each."""
+    n = grid.sorted_points.shape[0]
+    rs_a, run_len_a = _runs_table(grid, cells)
+    tot = torch.sum(run_len_a, dim=1, dtype=_I32)
+    key = torch.maximum(cells.count, (tot + 26) // 27)
+    valid = cells.cell_id != PAD_ID
+    tables = []
+    lo = 0
+    for b, sp in enumerate(spec):
+        member = valid & (key > lo)
+        if b < len(spec) - 1:
+            member = member & (key <= sp.hi_key)
+        rank = torch.cumsum(member.to(_I32), 0, dtype=_I32) - 1
+        slot = torch.where(member, torch.clamp_max(rank, sp.max_cells),
+                           sp.max_cells)
+        mcb = sp.max_cells
+        tables.append((
+            _scatter_drop(mcb, PAD_ID, slot, cells.cell_id),
+            _scatter_drop(mcb, n, slot, cells.start),
+            _scatter_drop(mcb, 0, slot, cells.count),
+            _scatter_drop(mcb, 0, slot, rs_a),
+            _scatter_drop(mcb, 0, slot, run_len_a),
+            torch.any(member & (rank >= mcb)),
+        ))
+        lo = sp.hi_key
+    return tables
+
+
+def bucketed_tile_args(grid: GridIndex, cells: CellTable, spec):
+    """Per-bucket cell arguments: a list of (BucketSpec, args) with args
+    = (cell_id, start, count, rs, run_len, run_overflow), one row per
+    member-table slot (empty slots are PAD cells)."""
+    out = []
+    for sp, (cid_b, start_b, count_b, rs_b, rl_b, lost) in zip(
+            spec, _bucket_tables(grid, cells, spec)):
+        overflow_b = _budget_overflow(rl_b, sp.cand_cap) | lost
+        out.append((sp, (cid_b, start_b, count_b, rs_b, rl_b, overflow_b)))
+    return out
+
+
+def apply_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
+                            fn: Callable, spec):
+    """Run ``fn`` over every point's kNN neighborhood inside the
+    occupancy-bucketed cell loop.
+
+    ``fn(centered (T,C,k,3), found (T,C,k)) -> tuple of float32 (T,C,...)``
+    sees neighborhoods taken straight from the select's winner
+    coordinates; only its per-query outputs are moved, to the caller's
+    original point order. Padding slots and uncovered rows stay zero.
+    Each bucket makes one select call over all of its cells.
+
+    Returns (outputs tuple of (n, ...), exact (n,), kth_dist (n,)).
+    """
+    n = grid.sorted_points.shape[0]
+    outs, exacts, kths, dests = [], [], [], []
+    for sp, args in bucketed_tile_args(grid, cells, spec):
+        run = cellwise_tile_runner(grid, k, sp.capacity, sp.cand_cap, fn)
+        out, exact, kth, qrow, ok_q = run(args)
+        dest_rows = grid.order[qrow.reshape(-1).long()]
+        dests.append(torch.where(ok_q.reshape(-1), dest_rows, n))
+        outs.append(tuple(a.reshape((-1,) + a.shape[2:]) for a in out))
+        exacts.append(exact.reshape(-1))
+        kths.append(kth.reshape(-1))
+    out = tuple(torch.cat(xs) for xs in zip(*outs))
+    exact = torch.cat(exacts) & ~cells.overflow
+    return _scatter_outputs(n, torch.cat(dests), out, exact, torch.cat(kths))
+
+
+_TILE_CELLS = 128                # cell-table rounding
+_MAX_BUCKETS = 6                 # occupancy buckets per cloud
+_SIZE_UNIT = 4 * _TILE_CELLS     # member-table rounding per bucket
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def default_max_cells(n: int, k: int) -> int:
+    """Static occupied-cell budget: expected cells ≈ n/(1.9k) for
+    auto-sized grids; 4× headroom, rounded to the tile size."""
+    mc = min(n, max(_TILE_CELLS, (4 * n) // max(int(1.9 * k), 1)))
+    return _round_up(mc, _TILE_CELLS)
+
+
+def _probe_totrun(grid: GridIndex, cells: CellTable) -> torch.Tensor:
+    """(MC,) per-cell TOTAL candidate count: the summed 3-cell x-run
+    length over the 9 (dy,dz) offsets."""
+    _, run_len_a = _runs_table(grid, cells)
+    return torch.sum(run_len_a, dim=1, dtype=_I32)
+
+
+def _optimal_buckets(key_s, counts_s, tot_s, capacity_cap: int,
+                     max_buckets: int, unit: int):
+    """Exact min-cost partition of key-SORTED cells into <= max_buckets
+    contiguous buckets; each bucket pays unit-rounded cells · capacity ·
+    (cand_cap + 32), with capacity and cand_cap the 8-rounded maxima of
+    its members' count and total run length. DP over the 8-aligned key
+    thresholds (host numpy). Returns a non-empty tuple of BucketSpec."""
+    num_cells = len(key_s)
+
+    def r8(x):
+        return np.maximum(8, ((np.asarray(x, np.int64) + 7) // 8) * 8)
+
+    kmax = int(key_s[-1])
+    bounds = sorted(
+        {int(np.searchsorted(key_s, c, side="right"))
+         for c in range(8, int(r8(kmax)) + 1, 8) if c < kmax}
+        | {0, num_cells})
+    B = np.asarray(bounds, dtype=np.int64)
+    nb = len(B)
+    seg_c = np.asarray([counts_s[B[j]:B[j + 1]].max(initial=0)
+                        for j in range(nb - 1)], dtype=np.int64)
+    seg_r = np.asarray([tot_s[B[j]:B[j + 1]].max(initial=0)
+                        for j in range(nb - 1)], dtype=np.int64)
+    cost = [None] * nb
+    for i in range(1, nb):
+        cmax = np.maximum.accumulate(seg_c[:i][::-1])[::-1]
+        rmax = np.maximum.accumulate(seg_r[:i][::-1])[::-1]
+        cap = np.minimum(r8(cmax), capacity_cap)
+        rc = r8(rmax)
+        size = ((B[i] - B[:i] + unit - 1) // unit) * unit
+        cost[i] = size.astype(np.float64) * cap * (rc + 32.0)
+    dp = np.full(nb, np.inf)
+    dp[0] = 0.0
+    # parent[b, i]: j of the bucket [B[j], B[i]) added at level b, or -1
+    # when level b keeps the (b-1)-bucket solution for i
+    parent = np.full((max_buckets, nb), -1, dtype=np.int64)
+    for b in range(max_buckets):
+        ndp = dp.copy()
+        for i in range(1, nb):
+            tot = dp[:i] + cost[i]
+            j = int(np.argmin(tot))
+            if tot[j] < ndp[i]:
+                ndp[i] = tot[j]
+                parent[b, i] = j
+        dp = ndp
+    out, b, i = [], max_buckets - 1, nb - 1
+    while i > 0:
+        j = parent[b, i]
+        if j < 0:
+            b -= 1
+            continue
+        out.append(BucketSpec(
+            hi_key=int(key_s[B[i] - 1]),
+            capacity=int(min(r8(counts_s[B[j]:B[i]].max()), capacity_cap)),
+            cand_cap=int(r8(tot_s[B[j]:B[i]].max())),
+            max_cells=int((((B[i] - B[j]) + unit - 1) // unit) * unit)))
+        b, i = b - 1, int(j)
+    return tuple(reversed(out))
+
+
+def probe_grid_buckets(grid: GridIndex, capacity_cap: int = 256):
+    """Host-side bucket tuning: one compaction + runs probe + one sync.
+
+    Partitions occupied cells by size class key = max(count,
+    ceil(total_run/27)) into <= 6 buckets, choosing the 8-aligned
+    thresholds that minimize Σ_b cells_b · capacity_b · (cand_cap_b +
+    32). Member tables round to 512 cells. Returns (spec, max_cells_total) for
+    ``apply_cellwise_bucketed`` / ``compact_cells``.
+    """
+    n = grid.sorted_points.shape[0]
+    probe = compact_cells(grid, n)
+    num_cells = int(probe.num_cells)
+    counts = probe.count[:num_cells].cpu().numpy()
+    tot = _probe_totrun(grid, probe)[:num_cells].cpu().numpy()
+    key = np.maximum(counts, (tot + 26) // 27)
+
+    spec = (BucketSpec(hi_key=8, capacity=8, cand_cap=216,
+                       max_cells=_SIZE_UNIT),)
+    if num_cells:
+        order = np.argsort(key, kind="stable")
+        spec = _optimal_buckets(key[order], counts[order], tot[order],
+                                capacity_cap, _MAX_BUCKETS, _SIZE_UNIT)
+    mc = _round_up(max(num_cells, _TILE_CELLS), _TILE_CELLS)
+    mc = min(1 << (mc - 1).bit_length(), _round_up(n, _TILE_CELLS))
+    return spec, mc

@@ -1,0 +1,59 @@
+"""CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA card with nvcc and skip elsewhere. This file
+imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pct_tpu_torch.ops.select import knn_select_coords, select_coords_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _tile(seed, T, C, M, dup=False, sparse=False):
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((T, M, 3)).astype(np.float32)
+    if dup:
+        p[:, 1::2] = p[:, 0::2][:, :M // 2]
+    q = p[:, :C].copy() if C <= M else rng.standard_normal(
+        (T, C, 3)).astype(np.float32)
+    cand = np.tile(np.arange(M, dtype=np.int32), (T, 1))
+    qrow = np.tile(np.arange(C, dtype=np.int32), (T, 1))   # self = slot c
+    valid = (rng.random((T, M)) < (0.05 if sparse else 0.9)).astype(np.int32)
+    return q, p, cand, qrow, valid
+
+
+@pytest.mark.parametrize("T,C,M,k,dup,sparse", [
+    (64, 8, 48, 5, False, False),       # one chunk, C < warp
+    (33, 37, 300, 20, False, False),    # two chunks, C not a warp multiple
+    (20, 64, 700, 63, False, False),    # three chunks, largest k
+    (16, 40, 256, 1, False, False),     # k = 1, M exactly one chunk
+    (24, 16, 96, 20, True, False),      # exact distance ties
+    (24, 16, 96, 20, False, True),      # fewer than k valid candidates
+    (8, 256, 520, 20, False, False),    # the probe's largest capacity
+    (16, 8, 8, 20, False, False),       # fewer candidate slots than k
+])
+def test_select_coords_kernel_bit_identical(cuda, T, C, M, k, dup, sparse):
+    ops = [torch.from_numpy(a).to(cuda)
+           for a in _tile(T * C + M, T, C, M, dup, sparse)]
+    before = knn_select_coords.launches
+    d_k, n_k = knn_select_coords(*ops, k)
+    torch.cuda.synchronize()
+    assert knn_select_coords.launches == before + 1
+    d_p, n_p = select_coords_plain(*ops, k)
+    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+    assert torch.equal(n_k.view(torch.int32), n_p.view(torch.int32))
+    if sparse:
+        assert (d_k > 1e18).any()

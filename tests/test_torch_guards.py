@@ -1,0 +1,86 @@
+"""Guards of the port: no JAX anywhere in it, CUDA by default with no
+quiet CPU fallback, TF32 off, and the slices not ported yet refuse."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import pct_tpu_torch
+from pct_tpu_torch.core import from_numpy
+from pct_tpu_torch.pipeline import fast_curvature, fused_curvature
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "pct_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "pct_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_pct_tpu():
+    files = _port_files()
+    assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    bad = [(f.relative_to(ROOT), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys; before = set(sys.modules); "
+            "import pct_tpu_torch, pct_tpu_torch.pipeline, "
+            "pct_tpu_torch.core, pct_tpu_torch.shapes; "
+            "print(sorted(m for m in set(sys.modules) - before "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'pct_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
+    cloud = from_numpy(pts, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        fast_curvature(cloud, 20)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fused_curvature(cloud.points, 64, torch.tensor(1.0), 20,
+                        bucket_spec=())
+    with pytest.raises(RuntimeError, match="cuda"):
+        from_numpy(pts)
+
+
+def test_tf32_is_off_after_import():
+    assert pct_tpu_torch.__version__
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"k": 64}, {"method": "implicit"}, {"engine": "moments"}],
+    ids=["k64", "implicit", "moments"])
+def test_later_slices_refuse(kwargs):
+    pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
+    cloud = from_numpy(pts, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        if "engine" in kwargs:
+            fused_curvature(cloud.points, 64, torch.tensor(1.0), 20,
+                            max_cells=128, bucket_spec=(), **kwargs)
+        else:
+            fast_curvature(cloud, device="cpu", **kwargs)

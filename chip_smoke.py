@@ -8,12 +8,20 @@ without printing its result line:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel of the port from the checkout's sources;
-3. each kernel against its plain PyTorch version on the card, on the
-   inputs the main path gives it: the 1M-point torus (padded to 1<<16),
-   k=20, every occupancy bucket — results must be bit-identical;
-4. the main path, ``pct_tpu_torch.pipeline.fast_curvature(k=20)``, on
-   that cloud: launch counts, kNN certificate, NaNs, K against the
-   analytic torus, kth distances against brute force on sampled rows;
+3. the list engine, k=20, on the 1M-point torus (padded to 1<<16):
+   a. the select kernel against its plain PyTorch version on every
+      occupancy bucket of the main path: bit-identical;
+   b. the main path, ``fast_curvature(k=20)``: launch counts, kNN
+      certificate, NaNs, K against the analytic torus, kth distances
+      against brute force on sampled rows;
+4. the moments engine, k=100, on the same cloud:
+   a. the moments kernel against its plain version on every bucket of
+      ``fast_curvature``'s own probe: columns 35–45 bit-identical, the
+      35 moment columns within count_le²·2⁻²⁴;
+   b. the main path, ``fast_curvature(k=100)``, with the same checks;
+   c. the virtual split on the card: ``fused_curvature(engine=
+      "moments")`` with cells split to 64 queries a row against the
+      unsplit layout;
 5. timings, each printed beside the card's name and power limit;
 6. the kernel table (one JSON line) and the result line.
 
@@ -28,12 +36,13 @@ import time
 from pathlib import Path
 
 N_POINTS = 1_000_000
-K = 20
 PAD_MULTIPLE = 1 << 16
-CAPACITY_CAP = max(256, 4 * K)   # fast_curvature's probe setting
+K_LIST = 20                      # list engine (select kernel)
+K_MOM = 100                      # moments engine (moments kernel)
 FP32_PEAK = 67e12                # H100 SXM FP32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PAIR_FLOPS = 9                   # 3 sub, 3 mul, 2 add, 1 compare per pair
+MEMBER_FLOPS = 70                # 35 mul + 35 add per weighted member
 TIMED_REPS = 5
 
 
@@ -71,6 +80,258 @@ def event_ms(fn, reps):
     return statistics.median(times)
 
 
+def bound(pairs, flops_per_pair, extra_flops, nbytes):
+    """(bound ms, what bounds it): the larger of the operations over the
+    FP32 peak and the bytes over the memory rate."""
+    t_ops = (pairs * flops_per_pair + extra_flops) / FP32_PEAK * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bucket_inputs(cellknn, grid, sp, args):
+    """The kernel operands the main path builds for one bucket, and the
+    valid query×candidate pairs its data needs."""
+    import torch
+
+    cand, ok_cand, cpts, qpts, qrow, ok_q = cellknn._tile_candidates(
+        grid, args, sp.capacity, sp.cand_cap)[:6]
+    count = args[2].to(torch.int64)
+    tot = torch.clamp_max(args[4].sum(-1), sp.cand_cap).to(torch.int64)
+    ops = (qpts, cpts, cand, qrow, ok_cand.to(torch.int32))
+    return ops, ok_q, int((count * tot).sum())
+
+
+def nbytes(*tensors):
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
+def select_vs_plain(cellknn, grid, cells, spec, k):
+    import torch
+    from pct_tpu_torch.ops.select import knn_select_coords, select_coords_plain
+
+    rows = mismatched = 0
+    max_err = 0.0
+    per_bucket = []
+    for b, (sp, args) in enumerate(cellknn.bucketed_tile_args(
+            grid, cells, spec)):
+        sel, _, pairs = bucket_inputs(cellknn, grid, sp, args)
+        d_k, n_k = knn_select_coords(*sel, k)
+        torch.cuda.synchronize()
+        d_p, n_p = select_coords_plain(*sel, k)
+        torch.cuda.synchronize()
+        same = ((d_k.view(torch.int32) == d_p.view(torch.int32)).all(-1)
+                & (n_k.view(torch.int32) == n_p.view(torch.int32))
+                .all(-1).all(-1))
+        rows += same.numel()
+        mismatched += int((~same).sum())
+        max_err = max(max_err, float((d_k - d_p).abs().max()),
+                      float((n_k - n_p).abs().max()))
+        nb = nbytes(*sel, d_k, n_k)
+        b_ms, b_by = bound(pairs, PAIR_FLOPS, 0, nb)
+        per_bucket.append(dict(
+            bucket=b, cells=int((args[0] != cellknn.PAD_ID).sum()),
+            capacity=sp.capacity, M=sel[1].shape[1], pairs=pairs, bytes=nb,
+            bound_ms=b_ms, bound_by=b_by,
+            ms=event_ms(lambda sel=sel: knn_select_coords(*sel, k),
+                        TIMED_REPS),
+            plain_ms=event_ms(lambda sel=sel: select_coords_plain(*sel, k),
+                              3)))
+        del d_k, n_k, d_p, n_p
+    log(f"select_coords kernel vs plain: {rows} query rows compared, "
+        f"{mismatched} mismatched, max abs err {max_err}")
+    check(mismatched == 0 and max_err == 0.0,
+          "select_coords kernel bit-identical to its plain version")
+    return per_bucket, max_err
+
+
+def moments_vs_plain(cellknn, grid, cells, spec, k):
+    import torch
+    from pct_tpu_torch.ops.moments import (
+        knn_moments,
+        moments_plain,
+        stats_agreement,
+    )
+
+    rows = differing = 0
+    max_err = max_ratio = 0.0
+    per_bucket = []
+    for b, (sp, args) in enumerate(cellknn.bucketed_tile_args(
+            grid, cells, spec)):
+        ops, ok_q, pairs = bucket_inputs(cellknn, grid, sp, args)
+        got = knn_moments(*ops, k)
+        torch.cuda.synchronize()
+        want = moments_plain(*ops, k)
+        torch.cuda.synchronize()
+        d, ratio, err = stats_agreement(got, want)
+        rows += ok_q.numel()
+        differing += d
+        max_err, max_ratio = max(max_err, err), max(max_ratio, ratio)
+        check(bool((got[..., 46:] == 0).all()), "moments columns 46-47 are 0")
+        # weighted members of the real query slots: w > 0 below tau, and
+        # at tau when the tie weight is positive
+        lt, le = want[..., 36], want[..., 37]
+        members = int(torch.where(lt < k, le, lt)[ok_q].sum())
+        nb = nbytes(*ops, got)
+        b_ms, b_by = bound(pairs, PAIR_FLOPS, MEMBER_FLOPS * members, nb)
+        per_bucket.append(dict(
+            bucket=b, cells=int((args[0] != cellknn.PAD_ID).sum()),
+            capacity=sp.capacity, M=ops[1].shape[1], pairs=pairs,
+            members=members, bytes=nb, bound_ms=b_ms, bound_by=b_by,
+            ratio=ratio,
+            ms=event_ms(lambda ops=ops: knn_moments(*ops, k), TIMED_REPS),
+            plain_ms=event_ms(lambda ops=ops: moments_plain(*ops, k), 3)))
+        log(f"  moments bucket {b}: C {sp.capacity}, M {ops[1].shape[1]}, "
+            f"{per_bucket[-1]['cells']} cells, {pairs} pairs: {d} rows "
+            f"differ, moment error ratio {ratio:.4g}")
+        del got, want
+    log(f"moments kernel vs plain: {rows} query rows compared, {differing} "
+        f"with a column 35-47 differing, max moment error / "
+        f"(count_le^2 2^-24) {max_ratio:.4g}, max abs err {max_err}")
+    check(differing == 0, "moments columns 35-47 bit-identical")
+    check(max_ratio <= 1.0, "moment columns within count_le^2 2^-24")
+    return per_bucket, max_err, max_ratio
+
+
+def drive(fast_curvature, cloud, k, counters, want_launches):
+    """The main path: counts set to 0, one cold and three warm
+    ``fast_curvature`` calls, counts read. ``want_launches`` maps each
+    counter's name to the launches one call must add."""
+    import torch
+
+    for fn in counters.values():
+        fn.launches = 0
+    walls = []
+    for i in range(1 + 3):
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fast_curvature(cloud, k)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        for name, fn in counters.items():
+            got = fn.launches - before[name]
+            check(got == want_launches[name],
+                  f"k={k} call {i}: {name} launched {got} times, want "
+                  f"{want_launches[name]}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return res, walls, launches
+
+
+def accuracy(res, cloud, pts, k, med_limit):
+    import numpy as np
+
+    from pct_tpu_torch.shapes import analytic_curvatures
+
+    n = cloud.num_points
+    K_t = res.curv.K[:n].cpu().numpy()
+    exact = res.exact[:n].cpu().numpy()
+    Ka, _ = analytic_curvatures("torus", pts)
+    relK = np.abs(K_t - Ka) / np.abs(Ka).max()
+    exact_frac = float(exact.mean())
+    nan_frac = float(np.isnan(K_t).mean())
+    med_err = float(np.median(relK))
+    log(f"main path k={k}: exact {exact_frac:.6f}, NaN fraction {nan_frac}, "
+        f"median scale-relative K error {med_err:.4e}, "
+        f"p99 {float(np.quantile(relK, 0.99)):.4e}")
+    check(tuple(res.curv.K.shape) == (cloud.capacity,)
+          and tuple(res.normals.shape) == (cloud.capacity, 3),
+          "output shapes")
+    check(exact_frac >= 0.999, "exact fraction >= 0.999")
+    check(nan_frac == 0.0, "no NaN in K")
+    check(med_err <= med_limit,
+          f"median scale-relative K error <= {med_limit}")
+
+
+def kth_vs_bruteforce(res, cloud, k):
+    """kth distances of 2048 sampled rows against brute force
+    (difference form)."""
+    import numpy as np
+    import torch
+
+    dev = cloud.points.device
+    n = cloud.num_points
+    sample = torch.from_numpy(
+        np.random.default_rng(0).choice(n, 2048, replace=False)).to(dev)
+    P = cloud.points[:n]
+    kth_bf = []
+    for s in range(0, sample.numel(), 64):
+        qi = sample[s:s + 64]
+        d = P[None, :, :] - P[qi][:, None, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]
+        d2[torch.arange(qi.numel(), device=dev), qi] = torch.inf
+        kth_bf.append(torch.sqrt(torch.topk(d2, k, largest=False)
+                                 .values[:, -1]))
+    kth_bf = torch.cat(kth_bf)
+    sel_exact = res.exact[sample]
+    kth_err = float((res.kth_dist[sample] - kth_bf)[sel_exact].abs().max())
+    log(f"k={k} kth distance vs brute force on {int(sel_exact.sum())} "
+        f"certified sampled rows: max abs diff {kth_err}")
+    check(kth_err <= 1e-6 * float(kth_bf.max()), "kth distance = brute force")
+
+
+def stage_times(label, cloud, k):
+    """Host-clock stages of one ``fast_curvature`` call, synchronized
+    after each: cell size, grid, engine choice with its bucket probe,
+    cell loop."""
+    import torch
+
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+    from pct_tpu_torch.pipeline.fused import (
+        SPLIT_TO,
+        _fused_on_grid,
+        plan_engine,
+    )
+
+    def stage(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    n = cloud.num_points
+    for rep in range(3):
+        cell_s, t_cell = stage(lambda: estimate_cell_size(cloud.points, n, k))
+        grid_s, t_grid = stage(lambda: build_grid(cloud.points, n, cell_s))
+        (engine, spec, mc, factor), t_probe = stage(
+            lambda: plan_engine(grid_s, k))
+        _, t_loop = stage(lambda: _fused_on_grid(grid_s, k, mc, spec, engine,
+                                                 (SPLIT_TO, factor)))
+        log(f"[{label}] k={k} stages rep {rep}: cell size {t_cell:.1f} ms, "
+            f"grid {t_grid:.1f} ms, bucket probe {t_probe:.1f} ms, cell "
+            f"loop {t_loop:.1f} ms")
+
+
+def log_buckets(label, name, per_bucket):
+    for r in per_bucket:
+        extra = (f", {r['members']} members, error ratio {r['ratio']:.4g}"
+                 if "members" in r else "")
+        log(f"[{label}] {name} bucket {r['bucket']}: {r['cells']} cells, C "
+            f"{r['capacity']}, M {r['M']}, {r['pairs']} pairs{extra}: kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), 1 launch/call")
+
+
+def kernel_row(name, source, replaces, launches, max_err, per_bucket,
+               flops):
+    t_ops = flops / FP32_PEAK
+    t_bytes = sum(r["bytes"] for r in per_bucket) / HBM_BYTES_PER_S
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": sum(r["ms"] for r in per_bucket),
+        "plain_ms": sum(r["plain_ms"] for r in per_bucket),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
 def main():
     import torch
 
@@ -88,15 +349,15 @@ def main():
         f"python {sys.version.split()[0]}, device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    import numpy as np
-
     from pct_tpu_torch.core import from_numpy
     from pct_tpu_torch.neighbors import cellknn
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.ops import build
-    from pct_tpu_torch.ops.select import knn_select_coords, select_coords_plain
-    from pct_tpu_torch.pipeline import fast_curvature
-    from pct_tpu_torch.shapes import analytic_curvatures, generate_shape
+    from pct_tpu_torch.ops.moments import knn_moments
+    from pct_tpu_torch.ops.select import knn_select_coords
+    from pct_tpu_torch.pipeline import fast_curvature, fused_curvature
+    from pct_tpu_torch.pipeline.fused import SPLIT_TO, plan_engine
+    from pct_tpu_torch.shapes import generate_shape
 
     # --- 2. build every kernel from the checkout ---
     t0 = time.perf_counter()
@@ -108,161 +369,103 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # --- 3. kernel vs plain version on the main path's inputs ---
     dev = torch.device("cuda")
     pts, _ = generate_shape("torus", N_POINTS, radius=1.0)
     cloud = from_numpy(pts, pad_multiple=PAD_MULTIPLE, device=dev)
     n = cloud.num_points
-    cell = estimate_cell_size(cloud.points, n, K)
+    counters = {"select_coords": knn_select_coords, "moments": knn_moments}
+
+    # --- 3. list engine, k=20 ---
+    cell = estimate_cell_size(cloud.points, n, K_LIST)
     grid = build_grid(cloud.points, n, cell)
-    spec, mc = cellknn.probe_grid_buckets(grid, capacity_cap=CAPACITY_CAP)
-    cells = cellknn.compact_cells(grid, mc)
-    log(f"cloud: {n} points, capacity {cloud.capacity}, cell "
-        f"{float(cell):.6g}, grid {grid.dims}, {len(spec)} buckets "
-        f"{[tuple(s) for s in spec]}")
+    engine, spec20, mc20, _ = plan_engine(grid, K_LIST)
+    check(engine == "list", f"k={K_LIST} runs the list engine")
+    log(f"cloud: {n} points, capacity {cloud.capacity}; k={K_LIST}: cell "
+        f"{float(cell):.6g}, grid {grid.dims}, {len(spec20)} buckets "
+        f"{[tuple(s) for s in spec20]}")
+    sel_buckets, sel_err = select_vs_plain(
+        cellknn, grid, cellknn.compact_cells(grid, mc20), spec20, K_LIST)
+    res20, walls20, launches20 = drive(
+        fast_curvature, cloud, K_LIST, counters,
+        {"select_coords": len(spec20), "moments": 0})
+    accuracy(res20, cloud, pts, K_LIST, 1.5e-3)
+    kth_vs_bruteforce(res20, cloud, K_LIST)
+    del res20
 
-    rows = mismatched = 0
-    max_err = 0.0
-    per_bucket = []
-    for b, (sp, args) in enumerate(cellknn.bucketed_tile_args(
-            grid, cells, spec)):
-        cand, ok_cand, cpts, qpts, qrow = cellknn._tile_candidates(
-            grid, args, sp.capacity, sp.cand_cap)[:5]
-        sel = (qpts, cpts, cand, qrow, ok_cand.to(torch.int32))
-        d_k, n_k = knn_select_coords(*sel, K)
-        torch.cuda.synchronize()
-        d_p, n_p = select_coords_plain(*sel, K)
-        torch.cuda.synchronize()
-        same = ((d_k.view(torch.int32) == d_p.view(torch.int32)).all(-1)
-                & (n_k.view(torch.int32) == n_p.view(torch.int32))
-                .all(-1).all(-1))
-        rows += same.numel()
-        mismatched += int((~same).sum())
-        max_err = max(max_err, float((d_k - d_p).abs().max()),
-                      float((n_k - n_p).abs().max()))
+    # --- 4. moments engine, k=100 ---
+    cap100 = max(256, 4 * K_MOM)            # fast_curvature's probe setting
+    cell = estimate_cell_size(cloud.points, n, K_MOM)
+    grid = build_grid(cloud.points, n, cell)
+    engine, spec100, mc100, factor = plan_engine(grid, K_MOM)
+    check(engine == "moments", f"k={K_MOM} runs the moments engine")
+    log(f"k={K_MOM}: cell {float(cell):.6g}, grid {grid.dims}, split factor "
+        f"{factor}, {len(spec100)} buckets {[tuple(s) for s in spec100]}")
+    cells = cellknn.compact_cells(grid, mc100)
+    if factor > 1:
+        cells = cellknn.split_cells(cells, cloud.capacity, SPLIT_TO, factor)
+    mom_buckets, mom_err, mom_ratio = moments_vs_plain(
+        cellknn, grid, cells, spec100, K_MOM)
+    del cells
+    res100, walls100, launches100 = drive(
+        fast_curvature, cloud, K_MOM, counters,
+        {"select_coords": 0, "moments": len(spec100)})
+    accuracy(res100, cloud, pts, K_MOM, 1.0e-3)
+    kth_vs_bruteforce(res100, cloud, K_MOM)
+    del res100
 
-        # bound: the pairs this bucket's data needs, and its tensors' bytes
-        count = args[2].to(torch.int64)
-        tot = torch.clamp_max(args[4].sum(-1), sp.cand_cap).to(torch.int64)
-        pairs = int((count * tot).sum())
-        nbytes = sum(a.numel() * a.element_size() for a in sel) \
-            + d_k.numel() * 4 + n_k.numel() * 4
-        t_ops = pairs * PAIR_FLOPS / FP32_PEAK * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        per_bucket.append(dict(
-            bucket=b, cells=int((args[0] != cellknn.PAD_ID).sum()),
-            capacity=sp.capacity, M=sel[1].shape[1], pairs=pairs,
-            bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            ms=event_ms(lambda sel=sel: knn_select_coords(*sel, K),
-                        TIMED_REPS),
-            plain_ms=event_ms(lambda sel=sel: select_coords_plain(*sel, K),
-                              3)))
-        del d_k, n_k, d_p, n_p
-    log(f"select_coords kernel vs plain: {rows} query rows compared, "
-        f"{mismatched} mismatched, max abs err {max_err}")
-    check(mismatched == 0 and max_err == 0.0,
-          "select_coords kernel bit-identical to its plain version")
-
-    # --- 4. the main path ---
-    knn_select_coords.launches = 0
-    walls = []
-    for i in range(1 + 3):
-        before = knn_select_coords.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fast_curvature(cloud, K)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        got = knn_select_coords.launches - before
-        check(got == len(spec),
-              f"call {i}: select_coords launched {got} times, "
-              f"want one per bucket ({len(spec)})")
-    launches = knn_select_coords.launches
-
-    K_t = res.curv.K[:n].cpu().numpy()
-    exact = res.exact[:n].cpu().numpy()
-    Ka, _ = analytic_curvatures("torus", pts)
-    relK = np.abs(K_t - Ka) / np.abs(Ka).max()
-    exact_frac = float(exact.mean())
-    nan_frac = float(np.isnan(K_t).mean())
-    med_err = float(np.median(relK))
-    log(f"main path: exact {exact_frac:.6f}, NaN fraction {nan_frac}, "
-        f"median scale-relative K error {med_err:.4e}, "
-        f"p99 {float(np.quantile(relK, 0.99)):.4e}")
-    check(tuple(res.curv.K.shape) == (cloud.capacity,)
-          and tuple(res.normals.shape) == (cloud.capacity, 3),
-          "output shapes")
-    check(exact_frac >= 0.999, "exact fraction >= 0.999")
-    check(nan_frac == 0.0, "no NaN in K")
-    check(med_err <= 1.5e-3, "median scale-relative K error <= 1.5e-3")
-
-    # kth distances of sampled rows against brute force (difference form)
-    sample = torch.from_numpy(
-        np.random.default_rng(0).choice(n, 2048, replace=False)).to(dev)
-    P = cloud.points[:n]
-    kth_bf = []
-    for s in range(0, sample.numel(), 64):
-        qi = sample[s:s + 64]
-        d = P[None, :, :] - P[qi][:, None, :]
-        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
-            + d[..., 2] * d[..., 2]
-        d2[torch.arange(qi.numel(), device=dev), qi] = torch.inf
-        kth_bf.append(torch.sqrt(torch.topk(d2, K, largest=False).values[:, -1]))
-    kth_bf = torch.cat(kth_bf)
-    sel_exact = res.exact[sample]
-    kth_err = float((res.kth_dist[sample] - kth_bf)[sel_exact].abs().max())
-    log(f"kth distance vs brute force on {int(sel_exact.sum())} certified "
-        f"sampled rows: max abs diff {kth_err}")
-    check(kth_err <= 1e-6 * float(kth_bf.max()), "kth distance = brute force")
+    # the virtual split on the card: cells of <= 64 queries a row
+    spec64, mc64, f64 = cellknn.probe_grid_buckets(
+        grid, capacity_cap=cap100, split_to=64)
+    spec_u, mc_u = cellknn.probe_grid_buckets(grid, capacity_cap=cap100)
+    check(f64 >= 2, f"split_to=64 splits the cloud (factor {f64})")
+    r_s = fused_curvature(cloud.points, n, cell, K_MOM, bucket_spec=spec64,
+                          max_cells=mc64, engine="moments", split=(64, f64))
+    r_u = fused_curvature(cloud.points, n, cell, K_MOM, bucket_spec=spec_u,
+                          max_cells=mc_u, engine="moments")
+    e = r_u.exact[:n]
+    k_diff = (r_s.curv.K[:n] - r_u.curv.K[:n])[e].abs()
+    k_tol = 1e-5 + 2e-4 * r_u.curv.K[:n][e].abs()
+    log(f"split check: factor {f64}, {len(spec64)} buckets of capacity <= "
+        f"{max(s.capacity for s in spec64)} vs {len(spec_u)} unsplit of "
+        f"<= {max(s.capacity for s in spec_u)}; exact rows differing "
+        f"{int((r_s.exact[:n] != e).sum())}, certified rows "
+        f"{int(e.sum())}, max K diff {float(k_diff.max()):.3e}")
+    check(bool((r_s.exact[:n] == e).all()), "split exact equals unsplit")
+    check(bool((k_diff <= k_tol).all()),
+          "split K within rtol 2e-4, atol 1e-5 of unsplit on certified rows")
+    del r_s, r_u
 
     # --- 5. numbers ---
-    wall = statistics.median(walls[1:])
-    log(f"[{label}] fast_curvature 1M torus k={K}: warm wall "
-        f"{wall:.4f} s/call (median of 3; cold first call "
-        f"{walls[0]:.3f} s), {N_POINTS / wall:.0f} points/s")
-
-    def stage(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    from pct_tpu_torch.pipeline.fused import _fused_on_grid
-    for rep in range(3):
-        cell_s, t_cell = stage(lambda: estimate_cell_size(cloud.points, n, K))
-        grid_s, t_grid = stage(lambda: build_grid(cloud.points, n, cell_s))
-        (spec_s, mc_s), t_probe = stage(lambda: cellknn.probe_grid_buckets(
-            grid_s, capacity_cap=CAPACITY_CAP))
-        _, t_loop = stage(lambda: _fused_on_grid(grid_s, K, mc_s, spec_s))
-        log(f"[{label}] stages rep {rep}: cell size {t_cell:.1f} ms, grid "
-            f"{t_grid:.1f} ms, bucket probe {t_probe:.1f} ms, cell loop "
-            f"{t_loop:.1f} ms")
-    for r in per_bucket:
-        log(f"[{label}] bucket {r['bucket']}: {r['cells']} cells, C "
-            f"{r['capacity']}, M {r['M']}, {r['pairs']} pairs: kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), 1 launch/call")
+    for k, walls in ((K_LIST, walls20), (K_MOM, walls100)):
+        wall = statistics.median(walls[1:])
+        log(f"[{label}] fast_curvature 1M torus k={k}: warm wall "
+            f"{wall:.4f} s/call (median of 3; cold first call "
+            f"{walls[0]:.3f} s), {N_POINTS / wall:.0f} points/s")
+    stage_times(label, cloud, K_LIST)
+    stage_times(label, cloud, K_MOM)
+    log_buckets(label, "select_coords", sel_buckets)
+    log_buckets(label, "moments", mom_buckets)
+    rows = [
+        kernel_row("select_coords", "pct_tpu_torch/csrc/select_coords.cu",
+                   "pct_tpu/ops/pallas_select.py:88",
+                   launches20["select_coords"], sel_err, sel_buckets,
+                   sum(r["pairs"] for r in sel_buckets) * PAIR_FLOPS),
+        kernel_row("moments", "pct_tpu_torch/csrc/moments.cu",
+                   "pct_tpu/ops/pallas_moments.py:58",
+                   launches100["moments"], mom_err, mom_buckets,
+                   sum(r["pairs"] * PAIR_FLOPS + r["members"] * MEMBER_FLOPS
+                       for r in mom_buckets)),
+    ]
+    rows[1]["max_err_ratio"] = mom_ratio
+    for r in rows:
+        log(f"[{label}] {r['name']} kernel: {r['ms']:.3f} ms/call "
+            f"({r['launches'] // 4} launches/call), plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
 
     # --- 6. result ---
-    kernel_ms = sum(r["ms"] for r in per_bucket)
-    t_ops = sum(r["pairs"] for r in per_bucket) * PAIR_FLOPS / FP32_PEAK
-    t_bytes = sum(r["bytes"] for r in per_bucket) / HBM_BYTES_PER_S
-    log('kernels: ["select_coords"]')
-    log(json.dumps({"kernels": [{
-        "name": "select_coords",
-        "route": "cuda",
-        "source": "pct_tpu_torch/csrc/select_coords.cu",
-        "replaces": "pct_tpu/ops/pallas_select.py:88",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": sum(r["plain_ms"] for r in per_bucket),
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-    }]}))
+    log(f"kernels: {[r['name'] for r in rows]}")
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,13 +5,17 @@ sub-package layout (``core``, ``neighbors``, ``ops``, ``fit``,
 ``curvature``, ``pipeline``, ``shapes``) so each module's counterpart is
 easy to find. It imports ``torch`` and ``numpy`` only.
 
-Ported so far: the explicit k < 64 curvature path,
-``pct_tpu_torch.pipeline.fused.fast_curvature(cloud, k, method="explicit")``,
-whose one kernel (``ops.select.knn_select_coords``) is hand-written CUDA
-C++ for ``sm_90a`` (``csrc/select_coords.cu``), built with nvcc at first
-use. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
-PyTorch version instead.
+Ported so far: the explicit method of
+``pct_tpu_torch.pipeline.fused.fast_curvature(cloud, k)`` on both
+engines. The list engine (k < 64) runs the select kernel
+(``ops.select.knn_select_coords``, ``csrc/select_coords.cu``); the
+moments engine (k >= 64, ``fused_curvature(engine="moments")``, and
+smaller k where the JAX package's engine rule refuses the list engine)
+runs the moments kernel (``ops.moments.knn_moments``,
+``csrc/moments.cu``). Both kernels are hand-written CUDA C++ for
+``sm_90a``, built with nvcc at first use. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; on CPU tensors every kernel
+wrapper runs its plain PyTorch version instead.
 """
 
 import torch

@@ -92,6 +92,7 @@ class ReferenceState(NamedTuple):
     bucket_spec: tuple        # tuple of neighbors.cellknn.BucketSpec
     cell_size: torch.Tensor   # () float32 grid cell edge
     max_cells: int            # occupied-cell table size
+    split_factor: int = 1     # virtual split factor of the spec (split_cells)
 
 
 def from_reference_arrays(
@@ -101,23 +102,27 @@ def from_reference_arrays(
     cell_size: float | np.floating | None = None,
     bucket_spec=None,
     max_cells: int | None = None,
+    split_factor: int = 1,
     k: int = 20,
     device: str | torch.device = "cuda",
 ) -> ReferenceState:
     """Adopt an already padded cloud and its static layout.
 
     ``points`` is a padded (capacity, 3) array such as
-    ``np.asarray(pct_tpu_cloud.points)``; ``bucket_spec`` and
-    ``max_cells`` are the output of a ``probe_grid_buckets`` call, given
-    as a sequence of 4-int tuples (hi_key, capacity, cand_cap, max_cells)
-    and an int; ``cell_size`` is taken bit-for-bit as float32. Taking the
-    cell size from the caller keeps a last-ulp difference in a float32
-    sum from moving points across a cell boundary. Whatever is None is
-    computed here for ``k`` neighbors, in this order: cell size, then
-    bucket probe.
+    ``np.asarray(pct_tpu_cloud.points)``; ``bucket_spec``, ``max_cells``
+    and ``split_factor`` are the output of a ``probe_grid_buckets`` call,
+    given as a sequence of 4-int tuples (hi_key, capacity, cand_cap,
+    max_cells), an int and, for a probe with ``split_to``, its factor;
+    ``cell_size`` is taken bit-for-bit as float32. Taking the cell size
+    from the caller keeps a last-ulp difference in a float32 sum from
+    moving points across a cell boundary. Whatever is None is computed
+    here for ``k`` neighbors, in this order: cell size, then the layout
+    ``fast_curvature`` runs (``pipeline.fused.plan_engine``: the bucket
+    probe of its engine and, on the moments engine, the split factor).
     """
-    from pct_tpu_torch.neighbors.cellknn import BucketSpec, probe_grid_buckets
+    from pct_tpu_torch.neighbors.cellknn import BucketSpec
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+    from pct_tpu_torch.pipeline.fused import plan_engine
 
     dev = resolve_device(device)
     pts = np.asarray(points, dtype=np.float32)
@@ -132,10 +137,11 @@ def from_reference_arrays(
     else:
         cell = torch.tensor(np.float32(cell_size), device=dev)
     if bucket_spec is None:
-        spec, mc = probe_grid_buckets(build_grid(cloud.points, n, cell))
+        _, spec, mc, split_factor = plan_engine(
+            build_grid(cloud.points, n, cell), k)
         max_cells = mc if max_cells is None else max_cells
     else:
         spec = tuple(BucketSpec(*map(int, s)) for s in bucket_spec)
         if max_cells is None:
             raise ValueError("a bucket_spec needs the max_cells it was probed with")
-    return ReferenceState(cloud, spec, cell, int(max_cells))
+    return ReferenceState(cloud, spec, cell, int(max_cells), int(split_factor))

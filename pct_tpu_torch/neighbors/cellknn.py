@@ -1,23 +1,25 @@
-"""Cell-centric kNN: the explicit-curvature cell loop (main-path subset).
+"""Cell-centric kNN: the curvature cell loop of both engines.
 
-Port of the parts of ``pct_tpu.neighbors.cellknn`` that
-``fast_curvature(k < 64, method="explicit")`` runs. Queries that share a
-grid cell share their whole candidate set, so the loop runs over
-OCCUPIED CELLS: per cell, the 27-cell neighborhood is fetched once as 9
-contiguous runs of 3 x-adjacent cells (contiguous in the sorted array
-because cell ids linearize x fastest), the select picks each query's k
-nearest, and the caller's ``fn`` runs on the neighborhoods. Cells are
-grouped into occupancy buckets (``probe_grid_buckets``), each with its
-own (capacity, cand_cap) shape, so padding tracks each cell's size.
-Exactness is certified per query (coverage radius, candidate budget,
-cell-table overflow) exactly as in the JAX package.
+Port of the parts of ``pct_tpu.neighbors.cellknn`` that ``fast_curvature``
+runs. Queries that share a grid cell share their whole candidate set, so
+the loop runs over OCCUPIED CELLS: per cell, the 27-cell neighborhood is
+fetched once as 9 contiguous runs of 3 x-adjacent cells (contiguous in
+the sorted array because cell ids linearize x fastest). The list engine's
+select picks each query's k nearest and the caller's ``fn`` runs on the
+neighborhoods; the moments engine's kernel reduces them to moment sums
+that a ``post_fn`` turns into curvature. Cells are grouped into
+occupancy buckets (``probe_grid_buckets``), each with its own
+(capacity, cand_cap) shape, so padding tracks each cell's size; big cells
+can be split into virtual rows (``split_cells``). Exactness is certified
+per query (coverage radius, candidate budget, cell-table overflow)
+exactly as in the JAX package.
 
-Left out, because only the TPU needs them: the Mosaic VMEM and
-compile-time model (``_select_scoped_bytes``, ``_select_plan``,
-``_SELECT_COMPILE_HAZARD``, ``pallas_select_ok``, the guards' select
-demotion), packed candidate rows (``_cand_pack``: the port always
-fetches one point per row, pack=1), the XLA expanded-distance select
-and the "slab"/"invert_late" output moves.
+Left out, because only the TPU needs them: packed candidate rows
+(``_cand_pack``: the port always fetches one point per row, pack=1), the
+guards' select demotion, the XLA expanded-distance select and the
+"slab"/"invert_late" output moves. The TPU select's VMEM and
+compile-time model survives only as the engine choice
+(``list_engine_ok``), so that both packages pick the same algorithm.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from pct_tpu_torch.neighbors.grid import MAXDIM, PAD_ID, GridIndex
+from pct_tpu_torch.ops.moments import knn_moments
 from pct_tpu_torch.ops.select import knn_select_coords
 
 _I32 = torch.int32
@@ -74,6 +77,37 @@ def compact_cells(grid: GridIndex, max_cells: int) -> CellTable:
     count = torch.where(c < num_cells, end - start, 0).to(_I32)
     return CellTable(cell_id, start, count, num_cells,
                      torch.any(rank > max_cells - 1), torch.max(count))
+
+
+def split_cells(cells: CellTable, n: int, cap: int, factor: int) -> CellTable:
+    """Virtual-split cells with count > ``cap`` into <= ``factor`` table
+    rows of <= ``cap`` queries each (same cell_id, start offset by
+    j·cap), so no bucket's capacity has to exceed ``cap``.
+
+    A cell's queries need not share a kernel row, only its candidate
+    runs do, and those are duplicated per virtual row. Consumers are
+    row-wise: ``_runs_table`` resolves duplicate ids to the first copy,
+    whose ``start`` is the cell's true run boundary; per-query outputs
+    move by ``qrow``, disjoint across the virtual rows; the coverage
+    certificate depends only on the (unchanged) cell coords. ``factor``
+    must be >= ceil(max_count / cap): ``probe_grid_buckets(split_to=cap)``
+    returns it.
+    """
+    dev = cells.cell_id.device
+    j = torch.arange(factor, dtype=_I32, device=dev)
+    cid = torch.repeat_interleave(cells.cell_id, factor)   # copies adjacent
+    start = (cells.start[:, None] + j[None, :] * cap).reshape(-1)
+    count = torch.clamp(cells.count[:, None] - j[None, :] * cap, 0, cap
+                        ).reshape(-1).to(_I32)
+    valid = (cid != PAD_ID) & (count > 0)
+    out_mc = cells.cell_id.shape[0] * factor
+    rank = torch.cumsum(valid.to(_I32), 0, dtype=_I32) - 1
+    slot = torch.where(valid, rank, out_mc)
+    return CellTable(_scatter_drop(out_mc, PAD_ID, slot, cid),
+                     _scatter_drop(out_mc, n, slot, start),
+                     _scatter_drop(out_mc, 0, slot, count),
+                     torch.sum(valid, dtype=_I32), cells.overflow,
+                     torch.max(count))
 
 
 def _decode(cell_id: torch.Tensor):
@@ -145,8 +179,13 @@ def _runs_table(grid: GridIndex, cells: CellTable):
 
     if total <= dense_cap:
         ckey = ix_a + d0 * (iy_a + d1 * iz_a)
-        table = _scatter_drop(dense_cap, nv, torch.where(pad, dense_cap, ckey),
-                              cells.start)
+        # scatter-MIN: split_cells leaves duplicate cell ids (virtual
+        # copies, start offset by j·cap) and the run boundary is the
+        # first copy's start; the sorted search gets that from side=left
+        table = torch.full((dense_cap + 1,), nv, dtype=_I32, device=dev)
+        table.scatter_reduce_(0, torch.where(pad, dense_cap, ckey).long(),
+                              cells.start, reduce="amin")
+        table = table[:dense_cap]
         # start rows are monotone in key -> suffix-min = "start of the
         # first occupied cell at-or-after this box"
         table = torch.flip(torch.cummin(torch.flip(table, [0]), 0).values, [0])
@@ -266,6 +305,32 @@ def cellwise_tile_runner(grid: GridIndex, k: int, capacity: int,
     return run
 
 
+def moments_tile_runner(grid: GridIndex, k: int, capacity: int,
+                        cand_cap: int, fn: Callable | None = None):
+    """Body of the cell loop for one bucket on the moments engine.
+
+    Same contract as ``cellwise_tile_runner``, but the neighborhoods are
+    never materialized: one ``knn_moments`` call over all T cells
+    reduces each query's k nearest to its (T,C,48) moment stats, which
+    are the runner's only output (the caller's ``post_fn`` turns them
+    into curvature). ``fn`` is ignored: the moment form exists for the
+    explicit method only. exact = found & (σ ≤ cover) & no run overflow
+    & a real query slot; the kth distance is σ.
+    """
+    del fn
+
+    def run(args):
+        cand, ok_cand, cpts, qpts, qrow, ok_q, cover, run_overflow = \
+            _tile_candidates(grid, args, capacity, cand_cap)
+        stats = knn_moments(qpts, cpts, cand, qrow, ok_cand.to(_I32), k)
+        sigma = stats[..., 38]
+        exact = ((stats[..., 45] > 0.0) & (sigma <= cover)
+                 & ~run_overflow[:, None] & ok_q)
+        return (stats,), exact, sigma, qrow, ok_q
+
+    return run
+
+
 def _scatter_outputs(n: int, dest: torch.Tensor, out, exact: torch.Tensor,
                      kth: torch.Tensor):
     """Move every per-query output to its (n,) destination in one pass.
@@ -352,22 +417,30 @@ def bucketed_tile_args(grid: GridIndex, cells: CellTable, spec):
 
 
 def apply_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
-                            fn: Callable, spec):
-    """Run ``fn`` over every point's kNN neighborhood inside the
-    occupancy-bucketed cell loop.
+                            fn: Callable | None, spec, runner=None,
+                            post_fn: Callable | None = None):
+    """Run the cell loop over every point's kNN neighborhood, bucket by
+    bucket.
 
-    ``fn(centered (T,C,k,3), found (T,C,k)) -> tuple of float32 (T,C,...)``
-    sees neighborhoods taken straight from the select's winner
-    coordinates; only its per-query outputs are moved, to the caller's
-    original point order. Padding slots and uncovered rows stay zero.
-    Each bucket makes one select call over all of its cells.
+    ``runner`` (default ``cellwise_tile_runner``, the list engine) builds
+    each bucket's body from (grid, k, capacity, cand_cap, fn). With the
+    list engine, ``fn(centered (T,C,k,3), found (T,C,k)) -> tuple of
+    float32 (T,C,...)`` sees neighborhoods taken straight from the
+    select's winner coordinates; ``moments_tile_runner`` ignores ``fn``.
+    ``post_fn`` maps the concatenated flat outputs, in tile order,
+    row for row to the outputs that are moved (the moments engine's
+    stats → curvature), BEFORE the one invert-and-gather move to the
+    caller's original point order. Padding slots and uncovered rows
+    stay zero. Each bucket makes one kernel call over all of its cells.
 
     Returns (outputs tuple of (n, ...), exact (n,), kth_dist (n,)).
     """
+    if runner is None:
+        runner = cellwise_tile_runner
     n = grid.sorted_points.shape[0]
     outs, exacts, kths, dests = [], [], [], []
     for sp, args in bucketed_tile_args(grid, cells, spec):
-        run = cellwise_tile_runner(grid, k, sp.capacity, sp.cand_cap, fn)
+        run = runner(grid, k, sp.capacity, sp.cand_cap, fn)
         out, exact, kth, qrow, ok_q = run(args)
         dest_rows = grid.order[qrow.reshape(-1).long()]
         dests.append(torch.where(ok_q.reshape(-1), dest_rows, n))
@@ -375,6 +448,8 @@ def apply_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
         exacts.append(exact.reshape(-1))
         kths.append(kth.reshape(-1))
     out = tuple(torch.cat(xs) for xs in zip(*outs))
+    if post_fn is not None:
+        out = post_fn(out)
     exact = torch.cat(exacts) & ~cells.overflow
     return _scatter_outputs(n, torch.cat(dests), out, exact, torch.cat(kths))
 
@@ -462,7 +537,8 @@ def _optimal_buckets(key_s, counts_s, tot_s, capacity_cap: int,
     return tuple(reversed(out))
 
 
-def probe_grid_buckets(grid: GridIndex, capacity_cap: int = 256):
+def probe_grid_buckets(grid: GridIndex, capacity_cap: int = 256,
+                       split_to: int | None = None):
     """Host-side bucket tuning: one compaction + runs probe + one sync.
 
     Partitions occupied cells by size class key = max(count,
@@ -470,12 +546,28 @@ def probe_grid_buckets(grid: GridIndex, capacity_cap: int = 256):
     thresholds that minimize Σ_b cells_b · capacity_b · (cand_cap_b +
     32). Member tables round to 512 cells. Returns (spec, max_cells_total) for
     ``apply_cellwise_bucketed`` / ``compact_cells``.
+
+    ``split_to``: model the cells as virtually split to <= split_to
+    queries a row (``split_cells``) and return (spec, max_cells_total,
+    factor) instead; no bucket's capacity then exceeds ``split_to``.
+    Pass the factor to ``split_cells`` (1 = no split needed).
+    max_cells_total sizes the UNSPLIT table of ``compact_cells``.
     """
     n = grid.sorted_points.shape[0]
     probe = compact_cells(grid, n)
     num_cells = int(probe.num_cells)
     counts = probe.count[:num_cells].cpu().numpy()
     tot = _probe_totrun(grid, probe)[:num_cells].cpu().numpy()
+    factor = 1
+    num_cells_unsplit = num_cells
+    if split_to is not None and num_cells and counts.max() > split_to:
+        factor = -(-int(counts.max()) // split_to)
+        reps = -(-counts // split_to)
+        idx = np.repeat(np.arange(num_cells), reps)
+        within = np.arange(len(idx)) - np.repeat(np.cumsum(reps) - reps, reps)
+        counts = np.minimum(counts[idx] - within * split_to, split_to)
+        tot = tot[idx]        # virtual copies keep the full candidate set
+        num_cells = len(idx)
     key = np.maximum(counts, (tot + 26) // 27)
 
     spec = (BucketSpec(hi_key=8, capacity=8, cand_cap=216,
@@ -484,6 +576,37 @@ def probe_grid_buckets(grid: GridIndex, capacity_cap: int = 256):
         order = np.argsort(key, kind="stable")
         spec = _optimal_buckets(key[order], counts[order], tot[order],
                                 capacity_cap, _MAX_BUCKETS, _SIZE_UNIT)
-    mc = _round_up(max(num_cells, _TILE_CELLS), _TILE_CELLS)
+    mc = _round_up(max(num_cells_unsplit, _TILE_CELLS), _TILE_CELLS)
     mc = min(1 << (mc - 1).bit_length(), _round_up(n, _TILE_CELLS))
+    if split_to is not None:
+        return spec, mc, factor
     return spec, mc
+
+
+# The TPU select's limits (pct_tpu.neighbors.cellknn): its Mosaic
+# scoped-VMEM budget and the compile-time hazard class of the unrolled
+# select at k >= 32.
+_SELECT_VMEM_BYTES = (64 << 20) * 3 // 4
+_SELECT_COMPILE_HAZARD = 48_000
+
+
+def _select_scoped_bytes(block: int, c: int, m: int, k: int) -> int:
+    """The JAX package's scoped-VMEM model of one TPU select program."""
+    return (8 * block * c * m + 32 * block * m + 16 * block * c
+            + 16 * block * c * k)
+
+
+def list_engine_ok(capacity: int, cand_cap: int, k: int) -> bool:
+    """Does ``fast_curvature`` run this bucket on the list engine?
+
+    The JAX package's ``pallas_select_ok`` at pack=1: False when k >= 32
+    and k·cand_cap > 48,000, or when the TPU select's scoped-VMEM model
+    at 8 cells a block exceeds 48 MB. Its constants come from the TPU
+    compiler's limits and mean nothing for the CUDA kernel; they are kept
+    only so that both packages choose the same algorithm (the moments
+    engine weights kth-distance ties fractionally and preconditions the
+    fit with the RMS extent, so its K differs from the list engine's).
+    """
+    if k >= 32 and k * cand_cap > _SELECT_COMPILE_HAZARD:
+        return False
+    return _select_scoped_bytes(8, capacity, cand_cap, k) <= _SELECT_VMEM_BYTES

@@ -1,0 +1,231 @@
+"""Large-k neighborhoods as MOMENT sums: exact kth distance, tie
+weights and 35 weighted monomial sums per query.
+
+Port of ``pct_tpu.ops.pallas_moments.knn_moments`` (TPU kernel
+``_moment_kernel``). Per cell row t and query slot c, over the M
+candidate slots (invalid slots and the query itself, ``cand == qrow``,
+are skipped):
+
+1. d² in the exact difference form ((dx·dx + dy·dy) + dz·dz), d = q − p;
+2. τ, the kth smallest valid d² when at least k valid candidates exist,
+   else the largest valid d², else 0 (the kernel finds it by bisection
+   on the int32 bits of d²: non-negative float32 compares are monotone
+   on their bits);
+3. count_lt = #(d² < τ), count_le = #(d² ≤ τ), found = count_le ≥ k,
+   and the first slots whose d² equals the minimum and τ;
+4. weights w = 1 below τ, w_tie = clip((k − count_lt)/count_eq, 0, 1)
+   at τ, 0 above;
+5. r̂ = clip((p − q)·(1/σ), −2, 2) with σ = √τ, and the 35 sums
+   Σ w·x̂ᵃŷᵇẑᶜ over a+b+c ≤ 4 in ``fit.moments.MOMENT_EXPS`` order. Each
+   monomial is built by the product chain (a,b,c) = (a−1,b,c)·x̂ when
+   a > 0, else (a,b−1,c)·ŷ when b > 0, else (a,b,c−1)·ẑ.
+
+Output (T, C, 48) float32, the JAX package's layout:
+  [0:35] moments, [35] τ, [36] count_lt, [37] count_le, [38] σ,
+  [39:42] nearest offset p₁ − q, [42:45] kth offset p_k − q (0 unless
+  found), [45] found, [46:48] 0.
+
+On CUDA tensors the hand-written kernel ``csrc/moments.cu`` runs (built
+with nvcc at first use); on CPU tensors the plain PyTorch version below.
+Both round every operation the same way, so columns 35–47 agree bit for
+bit on the card and every monomial is the same float; only the order of
+the 35 sums differs (the kernel adds in slot order), which keeps each
+moment column within count_le² · 2⁻²⁴ of the other (|monomial| ≤ 1 for
+every member).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from pct_tpu_torch.fit.moments import MOMENT_EXPS
+from pct_tpu_torch.ops import build
+
+NOUT = 48
+MISSING_D2 = 3.0e38       # d² of a skipped slot
+MAX_QUERIES = 512         # one thread per query slot, one block per cell row
+# (rows × C × M) elements per plain-version chunk: cache-sized on the
+# CPU (2.7× faster than 2^23 there), large on the card, where each chunk
+# costs ~130 kernel launches
+_PLAIN_PAIRS = {"cpu": 1 << 20, "cuda": 1 << 23}
+
+
+def _chain():
+    """(index, parent index, axis) of each monomial after (0,0,0)."""
+    idx = {e: i for i, e in enumerate(MOMENT_EXPS)}
+    out = []
+    for i, (a, b, c) in enumerate(MOMENT_EXPS[1:], start=1):
+        if a > 0:
+            out.append((i, idx[(a - 1, b, c)], 0))
+        elif b > 0:
+            out.append((i, idx[(a, b - 1, c)], 1))
+        else:
+            out.append((i, idx[(a, b, c - 1)], 2))
+    return tuple(out)
+
+
+_CHAIN = _chain()
+
+
+def _first(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 when none)."""
+    return torch.argmax(mask.to(torch.uint8), dim=-1)
+
+
+def _plain_block(qpts, cpts, cand, qrow, valid, k: int) -> torch.Tensor:
+    T, C, _ = qpts.shape
+    M = cpts.shape[1]
+    r = [cpts[:, None, :, a] - qpts[:, :, None, a] for a in range(3)]
+    d = [-x for x in r]                  # q − p, exactly (negation)
+    d2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]            # (T, C, M)
+    ok = (valid[:, None, :] > 0) & (cand[:, None, :] != qrow[:, :, None])
+    d2 = torch.where(ok, d2, MISSING_D2)
+    n_valid = ok.sum(-1)
+    top = torch.where(ok, d2, -torch.inf).max(-1).values
+    kth = torch.kthvalue(d2, k, dim=-1).values if M >= k else top
+    tau = torch.where(n_valid >= k, kth,
+                      torch.where(n_valid > 0, top, torch.zeros_like(top)))
+    tb = tau[..., None]
+    lt, le = d2 < tb, d2 <= tb
+    count_lt = lt.sum(-1)
+    count_le = le.sum(-1)
+    found = count_le >= k
+    eq = le & ~lt
+    am_n = _first(d2 == d2.min(-1, keepdim=True).values)[..., None]
+    am_k = _first(eq)[..., None]
+    near = [torch.gather(x, -1, am_n)[..., 0] for x in r]
+    kth_off = [torch.where(found, torch.gather(x, -1, am_k)[..., 0], 0.0)
+               for x in r]
+
+    sigma = torch.sqrt(torch.clamp_min(tau, 0.0))
+    inv = torch.div(torch.ones_like(sigma), torch.clamp_min(sigma, 1e-30))
+    count_eq = torch.clamp_min(count_le - count_lt, 1)
+    w_tie = torch.clamp((k - count_lt).to(torch.float32)
+                        / count_eq.to(torch.float32), 0.0, 1.0)
+    w = torch.where(lt, 1.0, torch.where(eq, w_tie[..., None], 0.0))
+    hat = [torch.clamp(x * inv[..., None], -2.0, 2.0) for x in r]
+    monos = [w] + [None] * (len(MOMENT_EXPS) - 1)
+    for i, parent, axis in _CHAIN:
+        monos[i] = monos[parent] * hat[axis]
+    cols = [m.sum(-1) for m in monos]
+    f32 = torch.float32
+    zero = torch.zeros_like(tau)
+    cols += [tau, count_lt.to(f32), count_le.to(f32), sigma, *near,
+             *kth_off, found.to(f32), zero, zero]
+    return torch.stack(cols, dim=-1)
+
+
+def moments_plain(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
+                  qrow: torch.Tensor, valid: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, in chunks of cell rows that
+    bound the (rows, C, M) block. τ is taken with ``torch.kthvalue``,
+    independently of the kernel's bisection.
+
+    qpts (T,C,3), cpts (T,M,3) float32; cand (T,M), qrow (T,C), valid
+    (T,M) int32. Returns (T, C, 48) float32.
+    """
+    T, C, _ = qpts.shape
+    if T == 0:
+        return qpts.new_empty((0, C, NOUT))
+    pairs = _PLAIN_PAIRS.get(qpts.device.type, 1 << 20)
+    step = max(1, pairs // max(C * cpts.shape[1], 1))
+    return torch.cat([_plain_block(*(a[s:s + step]
+                                     for a in (qpts, cpts, cand, qrow, valid)),
+                                   k)
+                      for s in range(0, T, step)])
+
+
+def stats_agreement(got: torch.Tensor, want: torch.Tensor):
+    """How far two (..., 48) stats of the same inputs are apart, in the
+    kernel's contract: (rows whose columns 35–47 differ in any bit, the
+    largest ratio of a moment column's |got − want| to count_le²·2⁻²⁴,
+    the largest abs difference over all columns). A ratio above 1, or
+    any differing row, breaks the contract."""
+    sel = (got[..., 35:].view(torch.int32)
+           != want[..., 35:].view(torch.int32)).any(-1)
+    le = want[..., 37:38]
+    err = (got[..., :35] - want[..., :35]).abs()
+    ratio = torch.where(err == 0, 0.0, err / (le * le * 2.0**-24))
+    return (int(sel.sum()), float(ratio.max()),
+            float((got - want).abs().max()))
+
+
+def _check(qpts, cpts, cand, qrow, valid, k):
+    if qpts.dim() != 3 or qpts.shape[2] != 3 or cpts.dim() != 3 \
+            or cpts.shape[2] != 3 or cpts.shape[0] != qpts.shape[0]:
+        raise ValueError(f"qpts (T,C,3) / cpts (T,M,3) expected, got "
+                         f"{tuple(qpts.shape)} / {tuple(cpts.shape)}")
+    T, C, _ = qpts.shape
+    M = cpts.shape[1]
+    if not 1 <= M < 2**31:
+        raise ValueError(f"{M} candidate slots outside [1, 2^31)")
+    for name, a, shape in (("cand", cand, (T, M)), ("qrow", qrow, (T, C)),
+                           ("valid", valid, (T, M))):
+        if tuple(a.shape) != shape or a.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 {shape}, got "
+                             f"{a.dtype} {tuple(a.shape)}")
+    if qpts.dtype != torch.float32 or cpts.dtype != torch.float32:
+        raise ValueError("qpts and cpts must be float32")
+    devs = {a.device for a in (qpts, cpts, cand, qrow, valid)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    if k < 1:
+        raise ValueError(f"k={k} must be positive")
+    if not 1 <= C <= MAX_QUERIES:
+        raise ValueError(f"{C} query slots outside [1, {MAX_QUERIES}]")
+
+
+@functools.cache
+def _library():
+    lib = build.load("moments")
+    fn = lib.pct_knn_moments
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def knn_moments(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
+                qrow: torch.Tensor, valid: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """(T,C,3) queries vs (T,M,3) candidates -> (T,C,48) moment stats
+    (layout in the module docstring).
+
+    ``cand`` (T,M) int32 candidate rows, ``qrow`` (T,C) int32 query rows
+    (a candidate equal to the query's row is itself and is skipped),
+    ``valid`` (T,M) int32, > 0 where the slot is real. CUDA tensors
+    launch the kernel (``knn_moments.launches`` counts launches); CPU
+    tensors run ``moments_plain``.
+    """
+    _check(qpts, cpts, cand, qrow, valid, k)
+    T, C, _ = qpts.shape
+    M = cpts.shape[1]
+    dev = qpts.device
+    if dev.type == "cpu":
+        return moments_plain(qpts, cpts, cand, qrow, valid, k)
+    if dev.type != "cuda":
+        raise ValueError(f"no moments kernel for device {dev}")
+    for name, a in (("qpts", qpts), ("cpts", cpts), ("cand", cand),
+                    ("qrow", qrow), ("valid", valid)):
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((T, C, NOUT), dtype=torch.float32, device=dev)
+    if T == 0:
+        return out
+    fn = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(qpts.data_ptr(), cpts.data_ptr(), cand.data_ptr(),
+                 qrow.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                 T, C, M, k, stream)
+    if err != 0:
+        raise RuntimeError(f"moments kernel launch failed: CUDA error {err}")
+    knn_moments.launches += 1
+    return out
+
+
+knn_moments.launches = 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one NVIDIA card.
 
-Drives ``pct_tpu_torch.pipeline.fast_curvature(k=20)`` on the 1M-point
+Drives ``pct_tpu_torch.pipeline.fast_curvature(k)`` on the 1M-point
 torus (padded to 1<<16, as chip_smoke.py does), warms it up, then traces
 one call with ``torch.profiler`` and prints:
 
@@ -13,8 +13,10 @@ one call with ``torch.profiler`` and prints:
 chip_smoke.py prints the host-side stage times of the same call.
 
 Run from the root of a checkout:
-    python3 scripts/torch_trace_fast_curvature.py [--trace-out PATH]
-``--trace-out`` also writes the Chrome trace of the traced call.
+    python3 scripts/torch_trace_fast_curvature.py [--k K] [--trace-out PATH]
+``--k`` is the neighbor count (default 20, the list engine; k >= 64
+runs the moments engine). ``--trace-out`` also writes the Chrome trace
+of the traced call.
 """
 
 import argparse
@@ -24,11 +26,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 N_POINTS = 1_000_000
-K = 20
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k", type=int, default=20,
+                    help="neighbors per point (default 20)")
     ap.add_argument("--trace-out", type=Path, default=None,
                     help="write the Chrome trace of the traced call here")
     args = ap.parse_args()
@@ -48,13 +51,13 @@ def main():
     pts, _ = generate_shape("torus", N_POINTS, radius=1.0)
     cloud = from_numpy(pts, pad_multiple=1 << 16, device="cuda")
     for _ in range(2):
-        fast_curvature(cloud, K)
+        fast_curvature(cloud, args.k)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fast_curvature(cloud, K)
+        fast_curvature(cloud, args.k)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -66,9 +69,9 @@ def main():
             busy += b - max(a, end)
             end = b
     busy_s = busy * 1e-6
-    print(f"[{label}] traced call: wall {wall * 1e3:.1f} ms, device busy "
-          f"{busy_s * 1e3:.1f} ms ({len(spans)} device events), idle share "
-          f"{1 - busy_s / wall:.3f}")
+    print(f"[{label}] traced call, k={args.k}: wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy_s * 1e3:.1f} ms ({len(spans)} device events), "
+          f"idle share {1 - busy_s / wall:.3f}")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=25))
     if args.trace_out is not None:

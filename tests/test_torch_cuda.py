@@ -10,6 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from pct_tpu_torch.ops.moments import (
+    knn_moments,
+    moments_plain,
+    stats_agreement,
+)
 from pct_tpu_torch.ops.select import knn_select_coords, select_coords_plain
 
 pytestmark = pytest.mark.cuda
@@ -57,3 +62,54 @@ def test_select_coords_kernel_bit_identical(cuda, T, C, M, k, dup, sparse):
     assert torch.equal(n_k.view(torch.int32), n_p.view(torch.int32))
     if sparse:
         assert (d_k > 1e18).any()
+
+
+def _moment_tile(seed, T, C, M, lattice=False, p_valid=0.9, empty=False):
+    """Random tile; ``lattice`` puts every point on a dyadic lattice
+    (exact d², many exact ties at the kth distance); ``empty`` makes
+    every other tile's candidates all invalid."""
+    rng = np.random.default_rng(seed)
+    if lattice:
+        p = (rng.integers(0, 16, (T, M, 3)) * 2.0**-4).astype(np.float32)
+    else:
+        p = rng.standard_normal((T, M, 3)).astype(np.float32)
+    q = p[:, :C].copy() if C <= M else rng.standard_normal(
+        (T, C, 3)).astype(np.float32)
+    cand = np.tile(np.arange(M, dtype=np.int32), (T, 1))
+    qrow = np.tile(np.arange(C, dtype=np.int32), (T, 1))   # self = slot c
+    valid = (rng.random((T, M)) < p_valid).astype(np.int32)
+    if empty:
+        valid[::2] = 0
+    return q, p, cand, qrow, valid
+
+
+@pytest.mark.parametrize("T,C,M,k,lattice,p_valid,empty", [
+    (16, 1, 300, 64, False, 0.9, False),      # C = 1, one chunk
+    (8, 37, 512, 100, False, 0.9, False),     # C % 32 != 0, M = one chunk
+    (4, 400, 1500, 100, False, 0.9, False),   # C = 400, three chunks
+    (6, 64, 2100, 200, False, 0.9, False),    # k = 200, five chunks
+    (8, 40, 700, 100, True, 0.9, False),      # exact ties: fractional weights
+    (8, 32, 600, 100, False, 0.1, False),     # under-k rows
+    (8, 24, 400, 64, False, 0.9, True),       # empty rows
+    (4, 8, 50, 64, False, 0.9, False),        # fewer candidate slots than k
+])
+def test_moments_kernel_matches_plain(cuda, T, C, M, k, lattice, p_valid,
+                                      empty):
+    ops = [torch.from_numpy(a).to(cuda)
+           for a in _moment_tile(T * C + M + k, T, C, M, lattice, p_valid,
+                                 empty)]
+    before = knn_moments.launches
+    got = knn_moments(*ops, k)
+    torch.cuda.synchronize()
+    assert knn_moments.launches == before + 1
+    want = moments_plain(*ops, k)
+    differing, ratio, _ = stats_agreement(got, want)
+    assert differing == 0 and ratio <= 1.0, (differing, ratio)
+    found = want[..., 45] > 0
+    if lattice:
+        eq = want[..., 37] - want[..., 36]
+        assert (found & (eq > 1)).any()       # ties split at the kth
+    if p_valid < 0.5 or M < k:
+        assert not found.any() and (want[..., 37] > 0).any()
+    if empty:
+        assert (want[::2, :, 35] == 0).all() and (want[::2, :, :35] == 0).all()

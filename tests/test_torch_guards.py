@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import pct_tpu_torch
-from pct_tpu_torch.core import from_numpy
+from pct_tpu_torch.core import from_numpy, from_reference_arrays
 from pct_tpu_torch.pipeline import fast_curvature, fused_curvature
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -76,11 +76,25 @@ def test_tf32_is_off_after_import():
     {"k": 64}, {"method": "implicit"}, {"engine": "moments"}],
     ids=["k64", "implicit", "moments"])
 def test_later_slices_refuse(kwargs):
+    """Only the implicit method still belongs to a later slice; the
+    moments engine (k >= 64, or ``engine="moments"``) runs on the CPU and
+    stays finite."""
     pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
     cloud = from_numpy(pts, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        if "engine" in kwargs:
-            fused_curvature(cloud.points, 64, torch.tensor(1.0), 20,
-                            max_cells=128, bucket_spec=(), **kwargs)
-        else:
+    if kwargs.get("method") == "implicit":
+        with pytest.raises(NotImplementedError, match="slice"):
             fast_curvature(cloud, device="cpu", **kwargs)
+        return
+    if "engine" in kwargs:
+        state = from_reference_arrays(cloud.points.numpy(), 64, k=20,
+                                      device="cpu")
+        res = fused_curvature(state.cloud.points, 64, state.cell_size, 20,
+                              max_cells=state.max_cells,
+                              bucket_spec=state.bucket_spec, device="cpu",
+                              **kwargs)
+        assert res.exact[:64].all()
+    else:
+        res = fast_curvature(cloud, device="cpu", **kwargs)
+        assert not res.exact.any()    # 63 other points: every row under k
+    for a in (*res.curv, res.normals, res.kth_dist):
+        assert torch.isfinite(a).all()

@@ -22,8 +22,20 @@ without printing its result line:
    c. the virtual split on the card: ``fused_curvature(engine=
       "moments")`` with cells split to 64 queries a row against the
       unsplit layout;
-5. timings, each printed beside the card's name and power limit;
-6. the kernel table (one JSON line) and the result line.
+5. library kNN, the staged pipeline and the implicit method, same cloud:
+   a. the rows and positions kernels against their plain versions on
+      every bucket of ``knn_cloud_grid(cloud, 20)``'s probe, bit for
+      bit, and rows = cand[pos]; the rows kernel at k=100 on every
+      bucket of the unsplit k=100 probe;
+   b. ``knn_cloud_grid(cloud, 20)``: launches, exact 1.0 after the
+      repair, kth distance against brute force;
+   c. ``curvature_pipeline(cloud, 20)`` against ``fast_curvature`` on
+      certified rows;
+   d. ``fast_curvature(method="implicit")`` at k=20 (the list engine)
+      and k=100 (``knn_cloud_grid`` + ``pointwise_curvature``), against
+      the analytic torus;
+6. timings, each printed beside the card's name and power limit;
+7. the kernel table (one JSON line) and the result line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -33,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 N_POINTS = 1_000_000
@@ -44,6 +57,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PAIR_FLOPS = 9                   # 3 sub, 3 mul, 2 add, 1 compare per pair
 MEMBER_FLOPS = 70                # 35 mul + 35 add per weighted member
 TIMED_REPS = 5
+PLAIN_BUDGET_S = 60.0            # plain-version time for the k=100 rows check
+CUT_ROWS = 4096                  # cell rows a bucket keeps past that budget
+SELECT_COORDS_PR2_MS = (13.62, 13.80)   # PERF.md, four runs
 
 
 def log(*a):
@@ -192,26 +208,26 @@ def moments_vs_plain(cellknn, grid, cells, spec, k):
     return per_bucket, max_err, max_ratio
 
 
-def drive(fast_curvature, cloud, k, counters, want_launches):
-    """The main path: counts set to 0, one cold and three warm
-    ``fast_curvature`` calls, counts read. ``want_launches`` maps each
-    counter's name to the launches one call must add."""
+def drive(call, label, counters, want_launches, warm=3):
+    """A main path: counts set to 0, one cold and ``warm`` warm calls of
+    ``call()``, counts read. ``want_launches`` maps each counter's name
+    to the launches one call must add."""
     import torch
 
     for fn in counters.values():
         fn.launches = 0
     walls = []
-    for i in range(1 + 3):
+    for i in range(1 + warm):
         before = {name: fn.launches for name, fn in counters.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = fast_curvature(cloud, k)
+        res = call()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         for name, fn in counters.items():
             got = fn.launches - before[name]
             check(got == want_launches[name],
-                  f"k={k} call {i}: {name} launched {got} times, want "
+                  f"{label} call {i}: {name} launched {got} times, want "
                   f"{want_launches[name]}")
     launches = {name: fn.launches for name, fn in counters.items()}
     return res, walls, launches
@@ -264,10 +280,108 @@ def kth_vs_bruteforce(res, cloud, k):
                                  .values[:, -1]))
     kth_bf = torch.cat(kth_bf)
     sel_exact = res.exact[sample]
+    check(int(sel_exact.sum()) > 0, "certified rows among the sample")
     kth_err = float((res.kth_dist[sample] - kth_bf)[sel_exact].abs().max())
     log(f"k={k} kth distance vs brute force on {int(sel_exact.sum())} "
         f"certified sampled rows: max abs diff {kth_err}")
     check(kth_err <= 1e-6 * float(kth_bf.max()), "kth distance = brute force")
+
+
+def ids_vs_plain(cellknn, grid, cells, spec, k, kernels, label):
+    """The rows/positions kernels against their plain versions on every
+    bucket, on the operands ``knn_cellwise_bucketed`` gives them (original
+    ids). ``kernels`` maps a name to (kernel, plain). Past PLAIN_BUDGET_S
+    of plain-version time, later buckets keep their first CUT_ROWS cell
+    rows. Returns per-kernel lists of per-bucket rows and the largest
+    abs error."""
+    import torch
+
+    per = {name: [] for name in kernels}
+    rows = mismatched = 0
+    max_err = 0.0
+    plain_s = 0.0
+    for b, (sp, args) in enumerate(cellknn.bucketed_tile_args(
+            grid, cells, spec)):
+        ops, ok_q, _, _ = cellknn._select_operands(
+            grid, args, sp.capacity, sp.cand_cap, with_ids=True)
+        count = args[2].to(torch.int64)
+        tot = torch.clamp_max(args[4].sum(-1), sp.cand_cap).to(torch.int64)
+        if plain_s > PLAIN_BUDGET_S:
+            ops = tuple(a[:CUT_ROWS] for a in ops)
+            count, tot = count[:CUT_ROWS], tot[:CUT_ROWS]
+            log(f"  {label} bucket {b}: plain-version time so far "
+                f"{plain_s:.1f} s > {PLAIN_BUDGET_S} s, comparing its first "
+                f"{CUT_ROWS} cell rows only")
+        pairs = int((count * tot).sum())
+        outs = {}
+        for name, (kernel, plain) in kernels.items():
+            d_k, w_k = kernel(*ops, k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d_p, w_p = plain(*ops, k)
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            same = ((d_k.view(torch.int32) == d_p.view(torch.int32))
+                    & (w_k == w_p)).all(-1)
+            rows += same.numel()
+            mismatched += int((~same).sum())
+            max_err = max(max_err, float((d_k - d_p).abs().max()),
+                          float((w_k - w_p).abs().max()))
+            outs[name] = w_k
+            nb = nbytes(*ops, d_k, w_k)
+            b_ms, b_by = bound(pairs, PAIR_FLOPS, 0, nb)
+            per[name].append(dict(
+                bucket=b, cells=int((args[0] != cellknn.PAD_ID).sum()),
+                capacity=sp.capacity, M=ops[1].shape[1],
+                cell_rows=ops[0].shape[0], pairs=pairs, bytes=nb,
+                bound_ms=b_ms, bound_by=b_by,
+                ms=event_ms(lambda ops=ops, f=kernel: f(*ops, k), 3),
+                plain_ms=event_ms(lambda ops=ops, f=plain: f(*ops, k), 1)))
+            del d_k, d_p, w_p
+        if "select_rows" in outs and "select_pos" in outs:
+            T, C, _ = outs["select_pos"].shape
+            picked = torch.gather(ops[2], 1, outs["select_pos"].reshape(
+                T, -1).long()).reshape(T, C, k)
+            check(bool((picked == outs["select_rows"]).all()),
+                  f"{label} bucket {b}: rows kernel = cand[pos kernel]")
+        del outs
+    log(f"{label} vs plain: {rows} query rows compared, {mismatched} "
+        f"mismatched, max abs err {max_err}, plain-version time "
+        f"{plain_s:.1f} s")
+    check(mismatched == 0 and max_err == 0.0,
+          f"{label}: kernels bit-identical to their plain versions")
+    return per, max_err
+
+
+def implicit_accuracy(res, cloud, pts, k, K_limit=None, H_limit=None):
+    """bench.py's implicit metrics: median scale-relative K error and
+    median relative |H| error against the analytic torus."""
+    import numpy as np
+
+    from pct_tpu_torch.shapes import analytic_curvatures
+
+    n = cloud.num_points
+    K = res.curv.K[:n].cpu().numpy()
+    H = res.curv.H[:n].cpu().numpy()
+    exact = res.exact[:n].cpu().numpy()
+    Ka, Ha = analytic_curvatures("torus", pts)
+    med_K = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
+    med_H = float(np.median(np.abs(np.abs(H) - np.abs(Ha)) / np.abs(Ha)))
+    nan = float(np.isnan(K).mean())
+    log(f"implicit k={k}: exact {float(exact.mean()):.6f}, NaN fraction "
+        f"{nan}, median scale-relative K error {med_K:.4e}, median "
+        f"relative |H| error {med_H:.4e}")
+    check(nan == 0.0 and not np.isnan(H).any(), f"implicit k={k}: no NaN")
+    check(tuple(res.curv.K.shape) == (cloud.capacity,), "output shape")
+    if K_limit is not None:
+        check(exact.mean() >= 0.999, f"implicit k={k}: exact >= 0.999")
+        check(med_K <= K_limit, f"implicit k={k}: median K error <= "
+              f"{K_limit}")
+        check(med_H <= H_limit, f"implicit k={k}: median |H| error <= "
+              f"{H_limit}")
+    else:
+        check(bool(exact.all()), f"implicit k={k}: exact 1.0")
+    return med_K, med_H
 
 
 def stage_times(label, cloud, k):
@@ -314,7 +428,9 @@ def log_buckets(label, name, per_bucket):
 
 
 def kernel_row(name, source, replaces, launches, max_err, per_bucket,
-               flops):
+               flops=None):
+    if flops is None:
+        flops = sum(r["pairs"] for r in per_bucket) * PAIR_FLOPS
     t_ops = flops / FP32_PEAK
     t_bytes = sum(r["bytes"] for r in per_bucket) / HBM_BYTES_PER_S
     return {
@@ -353,9 +469,20 @@ def main():
     from pct_tpu_torch.neighbors import cellknn
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.ops import build
+    from pct_tpu_torch.neighbors import knn_cloud_grid
     from pct_tpu_torch.ops.moments import knn_moments
-    from pct_tpu_torch.ops.select import knn_select_coords
-    from pct_tpu_torch.pipeline import fast_curvature, fused_curvature
+    from pct_tpu_torch.ops.select import (
+        knn_select,
+        knn_select_coords,
+        knn_select_rows,
+        select_pos_plain,
+        select_rows_plain,
+    )
+    from pct_tpu_torch.pipeline import (
+        curvature_pipeline,
+        fast_curvature,
+        fused_curvature,
+    )
     from pct_tpu_torch.pipeline.fused import SPLIT_TO, plan_engine
     from pct_tpu_torch.shapes import generate_shape
 
@@ -373,7 +500,9 @@ def main():
     pts, _ = generate_shape("torus", N_POINTS, radius=1.0)
     cloud = from_numpy(pts, pad_multiple=PAD_MULTIPLE, device=dev)
     n = cloud.num_points
-    counters = {"select_coords": knn_select_coords, "moments": knn_moments}
+    counters = {"select_coords": knn_select_coords, "moments": knn_moments,
+                "select_rows": knn_select_rows, "select_pos": knn_select}
+    none = {name: 0 for name in counters}
 
     # --- 3. list engine, k=20 ---
     cell = estimate_cell_size(cloud.points, n, K_LIST)
@@ -386,8 +515,8 @@ def main():
     sel_buckets, sel_err = select_vs_plain(
         cellknn, grid, cellknn.compact_cells(grid, mc20), spec20, K_LIST)
     res20, walls20, launches20 = drive(
-        fast_curvature, cloud, K_LIST, counters,
-        {"select_coords": len(spec20), "moments": 0})
+        lambda: fast_curvature(cloud, K_LIST), f"fast_curvature k={K_LIST}",
+        counters, {**none, "select_coords": len(spec20)})
     accuracy(res20, cloud, pts, K_LIST, 1.5e-3)
     kth_vs_bruteforce(res20, cloud, K_LIST)
     del res20
@@ -407,8 +536,8 @@ def main():
         cellknn, grid, cells, spec100, K_MOM)
     del cells
     res100, walls100, launches100 = drive(
-        fast_curvature, cloud, K_MOM, counters,
-        {"select_coords": 0, "moments": len(spec100)})
+        lambda: fast_curvature(cloud, K_MOM), f"fast_curvature k={K_MOM}",
+        counters, {**none, "moments": len(spec100)})
     accuracy(res100, cloud, pts, K_MOM, 1.0e-3)
     kth_vs_bruteforce(res100, cloud, K_MOM)
     del res100
@@ -435,26 +564,106 @@ def main():
           "split K within rtol 2e-4, atol 1e-5 of unsplit on certified rows")
     del r_s, r_u
 
-    # --- 5. numbers ---
-    for k, walls in ((K_LIST, walls20), (K_MOM, walls100)):
+    # --- 5. library kNN, the staged pipeline, the implicit method ---
+    cell = estimate_cell_size(cloud.points, n, K_LIST)
+    grid = build_grid(cloud.points, n, cell)
+    spec_knn, mc_knn = cellknn.probe_grid_buckets(grid)   # knn_cloud_grid's
+    log(f"knn_cloud_grid k={K_LIST}: {len(spec_knn)} buckets "
+        f"{[tuple(s) for s in spec_knn]}")
+    ids_buckets, ids_err = ids_vs_plain(
+        cellknn, grid, cellknn.compact_cells(grid, mc_knn), spec_knn, K_LIST,
+        {"select_rows": (knn_select_rows, select_rows_plain),
+         "select_pos": (knn_select, select_pos_plain)}, f"rows/pos k={K_LIST}")
+    cell = estimate_cell_size(cloud.points, n, K_MOM)
+    grid = build_grid(cloud.points, n, cell)
+    spec_knn100, mc_knn100 = cellknn.probe_grid_buckets(grid)
+    log(f"knn_cloud_grid k={K_MOM}: {len(spec_knn100)} buckets "
+        f"{[tuple(s) for s in spec_knn100]}")
+    rows100_buckets, rows100_err = ids_vs_plain(
+        cellknn, grid, cellknn.compact_cells(grid, mc_knn100), spec_knn100,
+        K_MOM, {"select_rows": (knn_select_rows, select_rows_plain)},
+        f"rows k={K_MOM}")
+    del grid
+
+    knn20, walls_knn, launches_knn = drive(
+        lambda: knn_cloud_grid(cloud, K_LIST)[0], f"knn_cloud_grid k={K_LIST}",
+        counters, {**none, "select_rows": len(spec_knn)})
+    log(f"knn_cloud_grid k={K_LIST}: exact {float(knn20.exact[:n].float().mean())}"
+        f", valid {float(knn20.valid[:n].float().mean())}")
+    check(bool(knn20.exact[:n].all()) and bool(knn20.valid[:n].all()),
+          "knn_cloud_grid: exact 1.0 and every slot found after the repair")
+    check(tuple(knn20.indices.shape) == (cloud.capacity, K_LIST),
+          "knn_cloud_grid output shape")
+    kth_vs_bruteforce(types.SimpleNamespace(
+        exact=knn20.exact, kth_dist=knn20.dists[:, -1]), cloud, K_LIST)
+    del knn20
+
+    pipe20, walls_pipe, _ = drive(
+        lambda: curvature_pipeline(cloud, K_LIST),
+        f"curvature_pipeline k={K_LIST}", counters,
+        {**none, "select_rows": len(spec_knn)})
+    fast20 = fast_curvature(cloud, K_LIST)
+    e = fast20.exact[:n]
+    K_f, K_s = fast20.curv.K[:n][e], pipe20.curv.K[:n][e]
+    pipe_err = float((K_s - K_f).abs().max() / K_f.abs().max())
+    log(f"curvature_pipeline vs fast_curvature k={K_LIST}: {int(e.sum())} "
+        f"certified rows, max |dK| / max|K| {pipe_err:.3e}")
+    check(pipe_err <= 2e-4, "curvature_pipeline K within 2e-4 max|K| of "
+          "fast_curvature on certified rows")
+    check(not bool(pipe20.curv.K[:n].isnan().any()), "pipeline: no NaN")
+    del pipe20, fast20
+
+    imp20, walls_imp20, _ = drive(
+        lambda: fast_curvature(cloud, K_LIST, method="implicit"),
+        f"implicit k={K_LIST}", counters,
+        {**none, "select_coords": len(spec20)})
+    imp20_err = implicit_accuracy(imp20, cloud, pts, K_LIST, 7e-3, 1.25e-2)
+    del imp20
+    imp100, walls_imp100, _ = drive(
+        lambda: fast_curvature(cloud, K_MOM, method="implicit"),
+        f"implicit k={K_MOM}", counters,
+        {**none, "select_rows": len(spec_knn100)}, warm=2)
+    imp100_err = implicit_accuracy(imp100, cloud, pts, K_MOM)
+    del imp100
+
+    # --- 6. numbers ---
+    for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
+                        (f"fast_curvature k={K_MOM}", walls100),
+                        (f"knn_cloud_grid k={K_LIST}", walls_knn),
+                        (f"curvature_pipeline k={K_LIST}", walls_pipe),
+                        (f"fast_curvature implicit k={K_LIST}", walls_imp20),
+                        (f"fast_curvature implicit k={K_MOM}", walls_imp100)):
         wall = statistics.median(walls[1:])
-        log(f"[{label}] fast_curvature 1M torus k={k}: warm wall "
-            f"{wall:.4f} s/call (median of 3; cold first call "
-            f"{walls[0]:.3f} s), {N_POINTS / wall:.0f} points/s")
+        log(f"[{label}] {name}, 1M torus: warm wall {wall:.4f} s/call "
+            f"(median of {len(walls) - 1}; cold first call {walls[0]:.3f} "
+            f"s), {N_POINTS / wall:.0f} points/s")
+    log(f"[{label}] implicit median K / |H| errors: k={K_LIST} "
+        f"{imp20_err[0]:.4e} / {imp20_err[1]:.4e}, k={K_MOM} "
+        f"{imp100_err[0]:.4e} / {imp100_err[1]:.4e}")
     stage_times(label, cloud, K_LIST)
     stage_times(label, cloud, K_MOM)
     log_buckets(label, "select_coords", sel_buckets)
     log_buckets(label, "moments", mom_buckets)
+    log_buckets(label, f"select_rows k={K_LIST}", ids_buckets["select_rows"])
+    log_buckets(label, f"select_pos k={K_LIST}", ids_buckets["select_pos"])
+    log_buckets(label, f"select_rows k={K_MOM}", rows100_buckets["select_rows"])
     rows = [
         kernel_row("select_coords", "pct_tpu_torch/csrc/select_coords.cu",
                    "pct_tpu/ops/pallas_select.py:88",
-                   launches20["select_coords"], sel_err, sel_buckets,
-                   sum(r["pairs"] for r in sel_buckets) * PAIR_FLOPS),
+                   launches20["select_coords"], sel_err, sel_buckets),
         kernel_row("moments", "pct_tpu_torch/csrc/moments.cu",
                    "pct_tpu/ops/pallas_moments.py:58",
                    launches100["moments"], mom_err, mom_buckets,
                    sum(r["pairs"] * PAIR_FLOPS + r["members"] * MEMBER_FLOPS
                        for r in mom_buckets)),
+        kernel_row("select_rows", "pct_tpu_torch/csrc/select_rows.cu",
+                   "pct_tpu/ops/pallas_select.py:131",
+                   launches_knn["select_rows"], max(ids_err, rows100_err),
+                   ids_buckets["select_rows"]),
+        kernel_row("select_pos", "pct_tpu_torch/csrc/select_rows.cu",
+                   "pct_tpu/ops/pallas_select.py:60",
+                   launches_knn["select_pos"], ids_err,
+                   ids_buckets["select_pos"]),
     ]
     rows[1]["max_err_ratio"] = mom_ratio
     for r in rows:
@@ -462,8 +671,15 @@ def main():
             f"({r['launches'] // 4} launches/call), plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
+    lo, hi = SELECT_COORDS_PR2_MS
+    log(f"[{label}] select_coords k={K_LIST}: {rows[0]['ms']:.3f} ms against "
+        f"{lo}-{hi} ms before the list limit rose to 128; within 10%: "
+        f"{0.9 * lo <= rows[0]['ms'] <= 1.1 * hi}")
+    log("select_pos: no entry point of either package selects positions "
+        "(the JAX package's only caller is _tile_select(want='pos')), so its "
+        "main-path launches are 0; it is held to its plain version above")
 
-    # --- 6. result ---
+    # --- 7. result ---
     log(f"kernels: {[r['name'] for r in rows]}")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -5,17 +5,25 @@ sub-package layout (``core``, ``neighbors``, ``ops``, ``fit``,
 ``curvature``, ``pipeline``, ``shapes``) so each module's counterpart is
 easy to find. It imports ``torch`` and ``numpy`` only.
 
-Ported so far: the explicit method of
-``pct_tpu_torch.pipeline.fused.fast_curvature(cloud, k)`` on both
-engines. The list engine (k < 64) runs the select kernel
-(``ops.select.knn_select_coords``, ``csrc/select_coords.cu``); the
-moments engine (k >= 64, ``fused_curvature(engine="moments")``, and
-smaller k where the JAX package's engine rule refuses the list engine)
-runs the moments kernel (``ops.moments.knn_moments``,
-``csrc/moments.cu``). Both kernels are hand-written CUDA C++ for
-``sm_90a``, built with nvcc at first use. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``; on CPU tensors every kernel
-wrapper runs its plain PyTorch version instead.
+Ported so far:
+
+- ``pipeline.fast_curvature(cloud, k, method)``, explicit and implicit.
+  The list engine runs the coords select kernel
+  (``ops.select.knn_select_coords``, ``csrc/select_coords.cu``); the
+  moments engine (explicit, k >= 64, and smaller k where the JAX
+  package's engine rule refuses the list engine) runs the moments kernel
+  (``ops.moments.knn_moments``, ``csrc/moments.cu``); the implicit
+  method falls back to the staged path where the list engine is refused.
+- library kNN, ``neighbors.knn_cloud_grid`` (plus ``knn_grid``,
+  ``ball_grid``), which runs the rows select kernel
+  (``ops.select.knn_select_rows``, ``csrc/select_rows.cu``, which also
+  holds the positions kernel of ``ops.select.knn_select``);
+- the staged ``pipeline.curvature_pipeline``.
+
+The kernels are hand-written CUDA C++ for ``sm_90a``, built with nvcc at
+first use. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
+PyTorch version instead.
 """
 
 import torch

@@ -34,17 +34,18 @@
 // thread-local arrays (local memory, L1-cached); winners' coordinates are
 // read back once at the end. Keeping the lists in registers, splitting a
 // query's scan over several threads and writing the outputs through shared
-// memory are later work.
+// memory are later work. The list length KM is a template parameter: 64 for
+// k <= 64 (the k=20 main path), 128 above.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int KMAX = 63;
 constexpr int CHUNK = 256;
 constexpr float MISSING_D2 = 3.0e38f;
 
+template <int KM>
 __global__ void select_coords_kernel(const float* __restrict__ q,      // (T,C,3)
                                      const float* __restrict__ p,      // (T,M,3)
                                      const int* __restrict__ cand,     // (T,M)
@@ -72,8 +73,8 @@ __global__ void select_coords_kernel(const float* __restrict__ q,      // (T,C,3
     qz = q[qi * 3 + 2];
     qr = qrow[qi];
   }
-  float td[KMAX];
-  int tm[KMAX];
+  float td[KM];
+  int tm[KM];
   for (int j = 0; j < k; ++j) {
     td[j] = MISSING_D2;
     tm[j] = 0;
@@ -127,14 +128,20 @@ __global__ void select_coords_kernel(const float* __restrict__ q,      // (T,C,3
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // Shapes: q (T,C,3), p (T,M,3) float32; cand (T,M), qrow (T,C), valid (T,M)
 // int32; outputs dist (T,C,k), nbr (T,C,k,3) float32; all contiguous.
-// Requires 1 <= C <= 1024 and 1 <= k <= 63 (checked by the wrapper).
+// Requires 1 <= C <= 1024 and 1 <= k <= 128 (checked by the wrapper).
 extern "C" int pct_select_coords(const float* q, const float* p, const int* cand,
                                  const int* qrow, const int* valid, float* dist,
                                  float* nbr, int T, int C, int M, int k,
                                  void* stream) {
   if (T <= 0) return 0;
   const int threads = ((C + 31) / 32) * 32;
-  select_coords_kernel<<<T, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, p, cand, qrow, valid, dist, nbr, C, M, k);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 64) {
+    select_coords_kernel<64><<<T, threads, 0, s>>>(q, p, cand, qrow, valid, dist,
+                                                   nbr, C, M, k);
+  } else {
+    select_coords_kernel<128><<<T, threads, 0, s>>>(q, p, cand, qrow, valid,
+                                                    dist, nbr, C, M, k);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,2 @@
 from pct_tpu_torch.curvature.explicit import Curvatures, explicit_curvatures  # noqa: F401
+from pct_tpu_torch.curvature.implicit import implicit_curvatures  # noqa: F401

@@ -6,3 +6,4 @@ from pct_tpu_torch.fit.frames import (  # noqa: F401
     tangent_frames,
 )
 from pct_tpu_torch.fit.quadratic import cholesky_solve, fit_quadratic  # noqa: F401
+from pct_tpu_torch.fit.quadric import fit_quadric, smallest_eigvec_10  # noqa: F401

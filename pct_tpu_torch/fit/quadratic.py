@@ -14,11 +14,13 @@ import torch
 _RIDGE = 1e-7
 
 
-def cholesky_solve(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Batched symmetric-positive-definite n×n solve, fully unrolled
-    (n from the trailing shape). A pivot that collapses (exactly
-    singular G, e.g. collinear lattice neighborhoods) drops its
-    component to 0, like lstsq's min-norm solution, instead of NaN."""
+def cholesky_factor(G: torch.Tensor):
+    """Batched unrolled Cholesky of symmetric-positive-definite n×n
+    matrices (n from the trailing shape) -> (L as nested lists of
+    (...,) tensors, the inverse pivots). A pivot that collapses (exactly
+    singular G, e.g. collinear lattice neighborhoods) gets an inverse of
+    0, so ``cholesky_apply`` drops its component, like lstsq's min-norm
+    solution, instead of returning NaN."""
     n = G.shape[-1]
     L = [[None] * n for _ in range(n)]
     invd = [None] * n
@@ -34,6 +36,14 @@ def cholesky_solve(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
             for t in range(j):
                 s = s - L[i][t] * L[j][t]
             L[i][j] = s * invd[j]
+    return L, invd
+
+
+def cholesky_apply(factor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve with a ``cholesky_factor`` result: forward then backward
+    substitution over (..., n) right-hand sides."""
+    L, invd = factor
+    n = len(invd)
     y = [None] * n
     for i in range(n):
         s = rhs[..., i]
@@ -47,6 +57,11 @@ def cholesky_solve(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
             s = s - L[t][i] * x[t]
         x[i] = s * invd[i]
     return torch.stack(x, dim=-1)
+
+
+def cholesky_solve(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Batched symmetric-positive-definite n×n solve, fully unrolled."""
+    return cholesky_apply(cholesky_factor(G), rhs)
 
 
 def fit_quadratic(rotated: torch.Tensor) -> torch.Tensor:

@@ -18,24 +18,46 @@ def _pairwise_sqdist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def knn_bruteforce(points: torch.Tensor, num_points: int, k: int,
-                   tile: int = 2048):
-    """Exact self-kNN of every row of ``points``, each row's own index
-    excluded (query k+1, drop self); padding rows (>= num_points) are
-    never candidates. Returns (indices (N,k) int32, dists (N,k) float32
-    ascending)."""
+                   queries: torch.Tensor | None = None,
+                   query_indices: torch.Tensor | None = None,
+                   exclude_self: bool = True, tile: int = 2048):
+    """Exact kNN of ``queries`` (default: every row of ``points``) among
+    the valid rows of ``points`` (padding rows >= num_points are never
+    candidates). With ``exclude_self`` the query's own row
+    (``query_indices``, default arange when ``queries`` is None) is
+    removed: the reference's "query k+1, drop self". Slots beyond the
+    valid candidates carry inf distances. Returns (indices (Q,k) int32,
+    dists (Q,k) float32 ascending)."""
     n = points.shape[0]
-    ar = torch.arange(n, device=points.device)
+    dev = points.device
+    if queries is None:
+        queries = points
+        if query_indices is None:
+            query_indices = torch.arange(n, device=dev)
+    if exclude_self and query_indices is None:
+        raise ValueError("exclude_self requires query_indices")
+    ar = torch.arange(n, device=dev)
     valid = ar < num_points
     idx_out, d_out = [], []
-    for s in range(0, n, tile):
-        q = points[s:s + tile]
+    for s in range(0, queries.shape[0], tile):
+        q = queries[s:s + tile]
         d2 = _pairwise_sqdist(q, points)
-        own = ar[None, :] == ar[s:s + q.shape[0], None]
-        d2 = torch.where(valid[None, :] & ~own, d2, torch.inf)
+        ok = valid[None, :]
+        if exclude_self:
+            ok = ok & (ar[None, :] != query_indices[s:s + tile, None])
+        d2 = torch.where(ok, d2, torch.inf)
         neg, idx = torch.topk(-d2, k, dim=1)
         idx_out.append(idx.to(torch.int32))
         d_out.append(torch.sqrt(torch.clamp_min(-neg, 0.0)))
+    if not idx_out:
+        return (torch.empty((0, k), dtype=torch.int32, device=dev),
+                torch.empty((0, k), device=dev))
     return torch.cat(idx_out), torch.cat(d_out)
+
+
+def knn_cloud(cloud, k: int, tile: int = 2048):
+    """All-points self-excluded kNN of a PointCloud (brute force)."""
+    return knn_bruteforce(cloud.points, cloud.num_points, k, tile=tile)
 
 
 def _sampled_nn_fold(points: torch.Tensor, num_points: int, sample: int,

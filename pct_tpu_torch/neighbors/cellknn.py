@@ -1,23 +1,28 @@
-"""Cell-centric kNN: the curvature cell loop of both engines.
+"""Cell-centric kNN: the cell loop of library kNN and of both
+curvature engines.
 
-Port of the parts of ``pct_tpu.neighbors.cellknn`` that ``fast_curvature``
-runs. Queries that share a grid cell share their whole candidate set, so
-the loop runs over OCCUPIED CELLS: per cell, the 27-cell neighborhood is
-fetched once as 9 contiguous runs of 3 x-adjacent cells (contiguous in
-the sorted array because cell ids linearize x fastest). The list engine's
-select picks each query's k nearest and the caller's ``fn`` runs on the
-neighborhoods; the moments engine's kernel reduces them to moment sums
-that a ``post_fn`` turns into curvature. Cells are grouped into
-occupancy buckets (``probe_grid_buckets``), each with its own
-(capacity, cand_cap) shape, so padding tracks each cell's size; big cells
-can be split into virtual rows (``split_cells``). Exactness is certified
-per query (coverage radius, candidate budget, cell-table overflow)
-exactly as in the JAX package.
+Port of ``pct_tpu.neighbors.cellknn``. Queries that share a grid cell
+share their whole candidate set, so the loop runs over OCCUPIED CELLS:
+per cell, the 27-cell neighborhood is fetched once as 9 contiguous runs
+of 3 x-adjacent cells (contiguous in the sorted array because cell ids
+linearize x fastest). A select kernel picks each query's k nearest:
+library kNN (``knn_cellwise_bucketed``, ``knn_cellwise``,
+``knn_all_points*``) takes the winners' ids, the list engine the
+winners' coordinates and runs the caller's ``fn`` on the neighborhoods;
+the moments engine's kernel reduces them to moment sums that a
+``post_fn`` turns into curvature. Cells are grouped into occupancy
+buckets (``probe_grid_buckets``), each with its own (capacity, cand_cap)
+shape, so padding tracks each cell's size; big cells can be split into
+virtual rows (``split_cells``). Every bucket makes one kernel launch
+over all of its cells. Exactness is certified per query (coverage
+radius, candidate budget, cell-table overflow) exactly as in the JAX
+package.
 
 Left out, because only the TPU needs them: packed candidate rows
 (``_cand_pack``: the port always fetches one point per row, pack=1), the
-guards' select demotion, the XLA expanded-distance select and the
-"slab"/"invert_late" output moves. The TPU select's VMEM and
+float32 id channel of the packed fetch (the port gathers int32 ids), the
+guards' select demotion and tile sizes, the XLA expanded-distance select
+and the "slab"/"invert_late" output moves. The TPU select's VMEM and
 compile-time model survives only as the engine choice
 (``list_engine_ok``), so that both packages pick the same algorithm.
 """
@@ -31,8 +36,9 @@ import numpy as np
 import torch
 
 from pct_tpu_torch.neighbors.grid import MAXDIM, PAD_ID, GridIndex
+from pct_tpu_torch.neighbors.knn import NeighborResult
 from pct_tpu_torch.ops.moments import knn_moments
-from pct_tpu_torch.ops.select import knn_select_coords
+from pct_tpu_torch.ops.select import knn_select, knn_select_coords, knn_select_rows
 
 _I32 = torch.int32
 
@@ -261,22 +267,54 @@ def _tile_candidates(grid: GridIndex, args, capacity: int, cand_cap: int):
     return cand, ok_cand, cpts, qpts, qrow, ok_q, cover, run_overflow
 
 
-def _tile_select(grid: GridIndex, args, k: int, capacity: int, cand_cap: int):
-    """Candidate fetch + k-selection for a batch of cells (the JAX
-    package's ``want="coords"``): the select emits the winners'
-    coordinates, so no (T,C,k) winner gather happens.
+def _select_operands(grid: GridIndex, args, capacity: int, cand_cap: int,
+                     with_ids: bool = False):
+    """The select kernels' operands for a batch of T cells.
 
-    Returns (nbrs (T,C,k,3), dists (T,C,k) ascending, found (T,C,k),
-    qpts (T,C,3), qrow (T,C), ok_q (T,C), exact (T,C) certificate).
+    Returns ((qpts, cpts, cand, qrow, valid int32), ok_q, cover,
+    run_overflow), see ``_tile_candidates``. ``with_ids``: ``cand`` and
+    ``qrow`` carry ORIGINAL point ids (an int32 gather ``grid.order[rows]``)
+    instead of sorted rows, so the rows select emits original ids;
+    self-exclusion is unchanged, since ids are unique. The JAX package
+    carries the ids through a float32 channel of its packed candidate
+    fetch, exact below 2^24 points; int32 has no such limit and gives the
+    same ids.
     """
     cand, ok_cand, cpts, qpts, qrow, ok_q, cover, run_overflow = \
         _tile_candidates(grid, args, capacity, cand_cap)
-    dists, nbrs = knn_select_coords(qpts, cpts, cand, qrow,
-                                    ok_cand.to(_I32), k)
+    if with_ids:
+        cand = grid.order[cand.long()]
+        qrow = grid.order[qrow.long()]
+    return ((qpts, cpts, cand, qrow, ok_cand.to(_I32)), ok_q, cover,
+            run_overflow)
+
+
+_SELECTS = {"coords": knn_select_coords, "rows": knn_select_rows,
+            "pos": knn_select}
+
+
+def _tile_select(grid: GridIndex, args, k: int, capacity: int, cand_cap: int,
+                 want: str = "coords", with_ids: bool = False):
+    """Candidate fetch + k-selection for a batch of cells, in one kernel
+    launch. ``want`` picks what the select emits beside the distances:
+
+    - "coords": (T,C,k,3) winner coordinates (== cpts[pos]), so no
+      (T,C,k) winner gather happens;
+    - "rows":   (T,C,k) winner ids (== cand[pos]): sorted rows, or
+      original point ids with ``with_ids``;
+    - "pos":    (T,C,k) winner positions in the M candidate axis.
+
+    Returns (win, dists (T,C,k) ascending, found (T,C,k), qpts (T,C,3),
+    qrow (T,C) as given to the select, ok_q (T,C), exact (T,C)
+    certificate).
+    """
+    ops, ok_q, cover, run_overflow = _select_operands(
+        grid, args, capacity, cand_cap, with_ids)
+    dists, win = _SELECTS[want](*ops, k)
     found = dists < 1e18     # the select backs missing slots with ~3e38
     exact = (found[..., k - 1] & (dists[..., k - 1] <= cover)
              & ~run_overflow[:, None])
-    return nbrs, dists, found, qpts, qrow, ok_q, exact
+    return win, dists, found, ops[0], ops[3], ok_q, exact
 
 
 _FIT_QUERIES = 1 << 17   # query slots per chunk of the in-loop fn
@@ -375,8 +413,11 @@ class BucketSpec(NamedTuple):
 def _bucket_tables(grid: GridIndex, cells: CellTable, spec):
     """Partition of the cell table (+ runs) by size class. The last
     bucket also absorbs any key above its threshold. Returns per bucket
-    (cid, start, count, rs, run_len_unclipped, lost) with ``max_cells``
-    rows each."""
+    (args, slot): args = (cell_id, start, count, rs, run_len,
+    run_overflow) with ``max_cells`` rows each (empty slots are PAD
+    cells; run_overflow also flags a bucket whose table lost cells), and
+    slot (MC,), each cell's row in the bucket's table, ``max_cells``
+    where the cell is not in it."""
     n = grid.sorted_points.shape[0]
     rs_a, run_len_a = _runs_table(grid, cells)
     tot = torch.sum(run_len_a, dim=1, dtype=_I32)
@@ -392,14 +433,16 @@ def _bucket_tables(grid: GridIndex, cells: CellTable, spec):
         slot = torch.where(member, torch.clamp_max(rank, sp.max_cells),
                            sp.max_cells)
         mcb = sp.max_cells
-        tables.append((
+        run_len_b = _scatter_drop(mcb, 0, slot, run_len_a)
+        lost = torch.any(member & (rank >= mcb))
+        tables.append(((
             _scatter_drop(mcb, PAD_ID, slot, cells.cell_id),
             _scatter_drop(mcb, n, slot, cells.start),
             _scatter_drop(mcb, 0, slot, cells.count),
             _scatter_drop(mcb, 0, slot, rs_a),
-            _scatter_drop(mcb, 0, slot, run_len_a),
-            torch.any(member & (rank >= mcb)),
-        ))
+            run_len_b,
+            _budget_overflow(run_len_b, sp.cand_cap) | lost,
+        ), slot))
         lo = sp.hi_key
     return tables
 
@@ -408,12 +451,8 @@ def bucketed_tile_args(grid: GridIndex, cells: CellTable, spec):
     """Per-bucket cell arguments: a list of (BucketSpec, args) with args
     = (cell_id, start, count, rs, run_len, run_overflow), one row per
     member-table slot (empty slots are PAD cells)."""
-    out = []
-    for sp, (cid_b, start_b, count_b, rs_b, rl_b, lost) in zip(
-            spec, _bucket_tables(grid, cells, spec)):
-        overflow_b = _budget_overflow(rl_b, sp.cand_cap) | lost
-        out.append((sp, (cid_b, start_b, count_b, rs_b, rl_b, overflow_b)))
-    return out
+    return [(sp, args) for sp, (args, _) in zip(
+        spec, _bucket_tables(grid, cells, spec))]
 
 
 def apply_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
@@ -581,6 +620,126 @@ def probe_grid_buckets(grid: GridIndex, capacity_cap: int = 256,
     if split_to is not None:
         return spec, mc, factor
     return spec, mc
+
+
+def probe_grid(grid: GridIndex, capacity_cap: int = 256):
+    """Host-side tuning of the one-bucket layout: one compaction + one
+    sync. Returns (cell table of the occupied cells, capacity covering
+    the fullest cell (capped: overfull cells lose their certificate),
+    max_cells rounded to a power of two, cand_cap = the largest total
+    9-run candidate count, 8-rounded)."""
+    n = grid.sorted_points.shape[0]
+    probe = compact_cells(grid, n)
+    num_cells = int(probe.num_cells)
+    capacity = min(_round_up(max(int(probe.max_count), 4), 8), capacity_cap)
+    mc = _round_up(max(num_cells, _TILE_CELLS), _TILE_CELLS)
+    mc = min(1 << (mc - 1).bit_length(), _round_up(n, _TILE_CELLS))
+    cells = CellTable(probe.cell_id[:mc], probe.start[:mc], probe.count[:mc],
+                      probe.num_cells, probe.num_cells > mc, probe.max_count)
+    cand_cap = int(_probe_totrun(grid, cells).max())
+    cand_cap = min(_round_up(max(cand_cap, 4), 8), 27 * capacity)
+    return cells, capacity, mc, cand_cap
+
+
+def knn_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int, spec,
+                          original_ids: bool = True,
+                          lean: bool = False) -> NeighborResult:
+    """Self-excluded kNN for every point over occupancy-bucketed cells,
+    rows in SORTED order (row r's query is grid.sorted_points[r]).
+
+    Each bucket makes one rows-select launch over all of its cells with
+    its own (capacity, cand_cap). ``indices`` are original point ids
+    when ``original_ids`` (carried through the select, see
+    ``_select_operands``), else sorted rows. The per-cell results move to
+    sorted-row order with a GATHER: row r lives in cell rank b_r at slot
+    r − start[b_r], i.e. at its bucket's offset + member slot · capacity
+    + slot. Uncovered rows (padding, cells past a bucket's table or
+    capacity) get index 0, distance 0, valid False and exact False.
+    ``lean`` returns only the kth distance, as ``dists`` of shape (n, 1),
+    and ``valid`` None.
+    """
+    n = grid.sorted_points.shape[0]
+    dev = grid.sorted_points.device
+    mc_total = cells.cell_id.shape[0]
+    cell_base = torch.zeros((mc_total,), dtype=torch.int64, device=dev)
+    cell_cap = torch.zeros((mc_total,), dtype=_I32, device=dev)
+    cell_in = torch.zeros((mc_total,), dtype=torch.bool, device=dev)
+    idxs, dsts, exacts = [], [], []
+    off = 0
+    for sp, (args, slot) in zip(spec, _bucket_tables(grid, cells, spec)):
+        rows, dists, _, _, _, ok_q, exact = _tile_select(
+            grid, args, k, sp.capacity, sp.cand_cap, want="rows",
+            with_ids=original_ids)
+        idxs.append(rows.reshape(-1, k))
+        dsts.append(dists.reshape(-1, k))
+        exacts.append((exact & ok_q).reshape(-1))
+        inside = slot < sp.max_cells
+        cell_base = torch.where(inside, off + slot.long() * sp.capacity,
+                                cell_base)
+        cell_cap = torch.where(inside, sp.capacity, cell_cap)
+        cell_in = cell_in | inside
+        off += sp.max_cells * sp.capacity
+
+    ids = grid.sorted_ids
+    prev = torch.cat([ids.new_full((1,), -1), ids[:-1]])
+    is_first = (ids != prev) & (ids != PAD_ID)
+    rank = torch.cumsum(is_first.to(_I32), 0, dtype=_I32) - 1
+    rank_c = torch.clamp(rank, 0, mc_total - 1).long()
+    slot_r = torch.arange(n, dtype=_I32, device=dev) - cells.start[rank_c]
+    covered = ((ids != PAD_ID) & (rank < mc_total) & cell_in[rank_c]
+               & (slot_r >= 0) & (slot_r < cell_cap[rank_c]))
+    src = torch.where(covered, cell_base[rank_c] + slot_r, 0)
+    d_src = torch.cat(dsts)[src]
+    out_idx = torch.where(covered[:, None], torch.cat(idxs)[src], 0)
+    out_e = covered & torch.cat(exacts)[src] & ~cells.overflow
+    if lean:
+        kth = torch.where(covered, d_src[:, k - 1], 0.0)
+        return NeighborResult(out_idx, kth[:, None], None, out_e)
+    out_d = torch.where(covered[:, None], d_src, 0.0)
+    out_f = covered[:, None] & (d_src < 1e18)
+    return NeighborResult(out_idx, out_d, out_f, out_e)
+
+
+def knn_cellwise(grid: GridIndex, cells: CellTable, k: int,
+                 capacity: int = 64, cand_cap: int | None = None,
+                 original_ids: bool = True,
+                 lean: bool = False) -> NeighborResult:
+    """``knn_cellwise_bucketed`` with one bucket that takes every cell of
+    ``cells``: ``capacity`` query slots and ``cand_cap`` (default
+    27·capacity, the full window at max occupancy) candidate slots a
+    cell. The JAX package's un-bucketed loop computes the same winners
+    and certificates."""
+    spec = (BucketSpec(hi_key=1 << 30, capacity=capacity,
+                       cand_cap=cand_cap or 27 * capacity,
+                       max_cells=cells.cell_id.shape[0]),)
+    return knn_cellwise_bucketed(grid, cells, k, spec, original_ids, lean)
+
+
+def knn_all_points(grid: GridIndex, k: int, capacity: int | None = None,
+                   max_cells: int | None = None) -> NeighborResult:
+    """Cell-centric self-kNN for every point of the grid (sorted order),
+    one bucket of conservative capacity (2.5k + 16, 8-rounded)."""
+    n = grid.sorted_points.shape[0]
+    if capacity is None:
+        capacity = _round_up(int(2.5 * k) + 16, 8)
+    if max_cells is None:
+        max_cells = default_max_cells(n, k)
+    return knn_cellwise(grid, compact_cells(grid, max_cells), k,
+                        capacity=capacity)
+
+
+def knn_all_points_auto(grid: GridIndex, k: int) -> NeighborResult:
+    """Self-kNN in one bucket with host-probed capacity and candidate
+    budget (``probe_grid``)."""
+    cells, capacity, _, cand_cap = probe_grid(grid)
+    return knn_cellwise(grid, cells, k, capacity=capacity, cand_cap=cand_cap)
+
+
+def knn_all_points_auto_bucketed(grid: GridIndex, k: int) -> NeighborResult:
+    """Self-kNN with host-probed occupancy buckets
+    (``probe_grid_buckets``): select padding tracks each cell's size."""
+    spec, mc = probe_grid_buckets(grid)
+    return knn_cellwise_bucketed(grid, compact_cells(grid, mc), k, spec)
 
 
 # The TPU select's limits (pct_tpu.neighbors.cellknn): its Mosaic

@@ -44,9 +44,33 @@ class GridIndex:
     num_valid: int
 
 
+def cell_coords(pts: torch.Tensor, origin: torch.Tensor,
+                cell_size: torch.Tensor, dims) -> torch.Tensor:
+    """(..., 3) int32 cell coordinates, clipped into the grid; ``dims``
+    a (3,) int tensor or a 3-tuple."""
+    dims = torch.as_tensor(dims, dtype=torch.int32, device=pts.device)
+    c = torch.floor((pts - origin) / cell_size).to(torch.int32)
+    return torch.minimum(torch.clamp_min(c, 0), dims - 1)
+
+
 def linearize(coords: torch.Tensor) -> torch.Tensor:
     return (coords[..., 0] * _MULT[0] + coords[..., 1] * _MULT[1]
             + coords[..., 2] * _MULT[2])
+
+
+def neighbor_cell_ids(qcoords: torch.Tensor, dims, rings: int) -> torch.Tensor:
+    """(..., (2r+1)³) int32 ids of the cells around each cell coordinate,
+    offsets in the JAX package's order (x slowest, z fastest);
+    out-of-grid cells -> PAD_ID."""
+    dev = qcoords.device
+    r = torch.arange(-rings, rings + 1, dtype=torch.int32, device=dev)
+    offs = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                       dim=-1).reshape(-1, 3)
+    dims = torch.as_tensor(dims, dtype=torch.int32, device=dev)
+    nc = qcoords[..., None, :] + offs
+    ok = torch.all((nc >= 0) & (nc < dims), dim=-1)
+    ids = linearize(torch.minimum(torch.clamp_min(nc, 0), dims - 1))
+    return torch.where(ok, ids, PAD_ID).to(torch.int32)
 
 
 def grid_geometry(lo: torch.Tensor, hi: torch.Tensor, cell_size: torch.Tensor):
@@ -64,8 +88,7 @@ def quantize_ids(points: torch.Tensor, valid: torch.Tensor,
                  dims: torch.Tensor) -> torch.Tensor:
     """(N,) int32 linearized cell id per row; PAD_ID where not ``valid``."""
     vpts = torch.where(valid[:, None], points, 0.0)
-    c = torch.floor((vpts - origin) / cell_size).to(torch.int32)
-    c = torch.minimum(torch.clamp_min(c, 0), dims - 1)
+    c = cell_coords(vpts, origin, cell_size, dims)
     return torch.where(valid, linearize(c), PAD_ID).to(torch.int32)
 
 

@@ -1,19 +1,30 @@
-"""Fused neighborhood distance + k-nearest selection with winner coords.
+"""Fused neighborhood distance + k-nearest selection.
 
-Port of ``pct_tpu.ops.pallas_select.knn_select_coords`` (TPU kernel
-``_select_coords_kernel``). Per cell row t, every query slot c takes
-the exact difference-form squared distance to every candidate slot m —
-no |q|²+|p|²−2qp expansion, so no cancellation — skips invalid slots and
-itself (``cand == qrow``), and keeps the k nearest in ascending
-(d², m) order (first-argmin on ties). It emits the distances and the
-winners' coordinates, so no (T,C,k) winner gather follows. Missing
-slots carry distance sqrt(3e38) and the coordinates of candidate slot 0;
-callers test ``found = dists < 1e18``.
+Port of the three select kernels of ``pct_tpu.ops.pallas_select``. Per
+cell row t, every query slot c takes the exact difference-form squared
+distance to every candidate slot m — no |q|²+|p|²−2qp expansion, so no
+cancellation — skips invalid slots and itself (``cand == qrow``), and
+keeps the k nearest in ascending (d², m) order (first-argmin on ties).
+The three wrappers differ only in what they emit beside the distances:
 
-On CUDA tensors the hand-written kernel ``csrc/select_coords.cu`` runs
-(built with nvcc at first use); on CPU tensors the plain PyTorch version
-below, which does the same IEEE float32 operations in the same order, so
-the two agree bit for bit on the card.
+- ``knn_select_coords`` (``_select_coords_kernel``): the winners'
+  coordinates ``cpts[pos]``, so no (T,C,k) winner gather follows;
+- ``knn_select_rows`` (``_select_rows_kernel``): the winners' ids
+  ``cand[pos]``;
+- ``knn_select`` (``_select_kernel``): the winners' positions ``pos`` in
+  the M axis.
+
+Missing slots carry distance sqrt(3e38) and position 0 (so the
+coordinates of candidate slot 0, and the id ``cand[t, 0]``); callers
+test ``found = dists < 1e18``. The lists hold at most ``KMAX`` = 128
+neighbors; the JAX package's list engine runs only where k·cand_cap ≤
+48,000, so k > 128 reaches a select only on a degenerate cloud whose
+27-cell windows hold fewer than ~3·k points (n < k, for example).
+
+On CUDA tensors the hand-written kernels run (``csrc/select_coords.cu``,
+``csrc/select_rows.cu``, built with nvcc at first use); on CPU tensors
+the plain PyTorch versions below, which do the same IEEE float32
+operations in the same order, so the two agree bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -26,14 +37,15 @@ import torch
 from pct_tpu_torch.ops import build
 
 MISSING_D2 = 3.0e38
-KMAX = 63           # per-thread top-k list length in the kernel
+KMAX = 128          # per-thread top-k list length in the kernels
 MAX_QUERIES = 1024  # one thread per query slot, one block per cell row
 _PLAIN_PAIRS = 1 << 24   # (rows × C × M) elements per plain-version chunk
 
 
 def _plain_block(qpts, cpts, cand, qrow, valid, k: int):
-    """The Pallas kernel's k rounds of min, first-argmin and mask-out
-    over one (T,C,M) distance block."""
+    """The Pallas kernels' k rounds of min, first-argmin and mask-out
+    over one (T,C,M) distance block -> (dists (T,C,k), pos (T,C,k)
+    int64)."""
     T, C, _ = qpts.shape
     M = cpts.shape[1]
     dx = qpts[:, :, None, 0] - cpts[:, None, :, 0]
@@ -51,28 +63,67 @@ def _plain_block(qpts, cpts, cand, qrow, valid, k: int):
         dists[..., j] = torch.sqrt(torch.clamp_min(mn[..., 0], 0.0))
         pos[..., j] = am[..., 0]
         d2.scatter_(-1, am.long(), MISSING_D2)
+    return dists, pos
+
+
+def _plain(qpts, cpts, cand, qrow, valid, k: int, emit):
+    """Plain version of a select, in chunks of cell rows that bound the
+    (rows, C, M) distance block; ``emit(pos, cpts, cand)`` turns each
+    chunk's winner positions into the wrapper's second output. Rows with
+    no valid candidate (empty member-table slots) skip the rounds: every
+    slot of theirs is missing, (sqrt(3e38), position 0)."""
+    T, C, _ = qpts.shape
+    live = valid.any(dim=1).nonzero().flatten()
+    dists = torch.sqrt(qpts.new_full((T, C, k), MISSING_D2))
+    pos = torch.zeros((T, C, k), dtype=torch.int64, device=qpts.device)
+    step = max(1, _PLAIN_PAIRS // max(C * cpts.shape[1], 1))
+    for s in range(0, live.numel(), step):
+        rows = live[s:s + step]
+        dists[rows], pos[rows] = _plain_block(
+            *(a[rows] for a in (qpts, cpts, cand, qrow, valid)), k)
+    return dists, emit(pos, cpts, cand)
+
+
+def _emit_coords(pos, cpts, cand):
+    T, C, k = pos.shape
     nbrs = torch.gather(cpts, 1, pos.reshape(T, C * k, 1).expand(-1, -1, 3))
-    return dists, nbrs.reshape(T, C, k, 3)
+    return nbrs.reshape(T, C, k, 3)
+
+
+def _emit_rows(pos, cpts, cand):
+    T, C, k = pos.shape
+    return torch.gather(cand, 1, pos.reshape(T, C * k)).reshape(T, C, k)
+
+
+def _emit_pos(pos, cpts, cand):
+    return pos.to(torch.int32)
 
 
 def select_coords_plain(qpts: torch.Tensor, cpts: torch.Tensor,
                         cand: torch.Tensor, qrow: torch.Tensor,
                         valid: torch.Tensor, k: int):
-    """Plain PyTorch version of the kernel, in chunks of cell rows that
-    bound the (rows, C, M) distance block.
+    """Plain PyTorch version of ``knn_select_coords``.
 
     qpts (T,C,3), cpts (T,M,3) float32; cand (T,M), qrow (T,C), valid
     (T,M) int32. Returns (dists (T,C,k), nbrs (T,C,k,3)).
     """
-    T, C, _ = qpts.shape
-    if T == 0:
-        return qpts.new_empty((0, C, k)), qpts.new_empty((0, C, k, 3))
-    step = max(1, _PLAIN_PAIRS // max(C * cpts.shape[1], 1))
-    parts = [_plain_block(*(a[s:s + step]
-                            for a in (qpts, cpts, cand, qrow, valid)), k)
-             for s in range(0, T, step)]
-    return (torch.cat([d for d, _ in parts]),
-            torch.cat([n for _, n in parts]))
+    return _plain(qpts, cpts, cand, qrow, valid, k, _emit_coords)
+
+
+def select_rows_plain(qpts: torch.Tensor, cpts: torch.Tensor,
+                      cand: torch.Tensor, qrow: torch.Tensor,
+                      valid: torch.Tensor, k: int):
+    """Plain PyTorch version of ``knn_select_rows``: (dists (T,C,k),
+    rows (T,C,k) int32 = cand[pos])."""
+    return _plain(qpts, cpts, cand, qrow, valid, k, _emit_rows)
+
+
+def select_pos_plain(qpts: torch.Tensor, cpts: torch.Tensor,
+                     cand: torch.Tensor, qrow: torch.Tensor,
+                     valid: torch.Tensor, k: int):
+    """Plain PyTorch version of ``knn_select``: (dists (T,C,k), pos
+    (T,C,k) int32)."""
+    return _plain(qpts, cpts, cand, qrow, valid, k, _emit_pos)
 
 
 def _check(qpts, cpts, cand, qrow, valid, k):
@@ -95,18 +146,51 @@ def _check(qpts, cpts, cand, qrow, valid, k):
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
     if not 1 <= k <= KMAX:
-        raise ValueError(f"k={k} outside [1, {KMAX}]")
+        raise ValueError(f"k={k} outside [1, {KMAX}]: the select keeps at "
+                         f"most {KMAX} neighbors")
     if not 1 <= C <= MAX_QUERIES:
         raise ValueError(f"{C} query slots outside [1, {MAX_QUERIES}]")
 
 
 @functools.cache
-def _library():
-    lib = build.load("select_coords")
-    fn = lib.pct_select_coords
+def _kernel(source: str, symbol: str):
+    fn = getattr(build.load(source), symbol)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _select(wrapper, source: str, symbol: str, plain, win_dtype, win_tail,
+            qpts, cpts, cand, qrow, valid, k: int):
+    """Check the operands, then run ``plain`` on CPU tensors or launch
+    ``symbol`` of ``csrc/<source>.cu`` on CUDA tensors, counting the
+    launch on ``wrapper.launches``."""
+    _check(qpts, cpts, cand, qrow, valid, k)
+    T, C, _ = qpts.shape
+    M = cpts.shape[1]
+    dev = qpts.device
+    if dev.type == "cpu":
+        return plain(qpts, cpts, cand, qrow, valid, k)
+    if dev.type != "cuda":
+        raise ValueError(f"no select for device {dev}")
+    for name, a in (("qpts", qpts), ("cpts", cpts), ("cand", cand),
+                    ("qrow", qrow), ("valid", valid)):
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dists = torch.empty((T, C, k), dtype=torch.float32, device=dev)
+    wins = torch.empty((T, C, k) + win_tail, dtype=win_dtype, device=dev)
+    if T == 0:
+        return dists, wins
+    fn = _kernel(source, symbol)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(qpts.data_ptr(), cpts.data_ptr(), cand.data_ptr(),
+                 qrow.data_ptr(), valid.data_ptr(), dists.data_ptr(),
+                 wins.data_ptr(), T, C, M, k, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    return dists, wins
 
 
 def knn_select_coords(qpts: torch.Tensor, cpts: torch.Tensor,
@@ -115,39 +199,42 @@ def knn_select_coords(qpts: torch.Tensor, cpts: torch.Tensor,
     """(T,C,3) queries vs (T,M,3) candidates -> (dists (T,C,k) ascending,
     nbrs (T,C,k,3) winner coordinates).
 
-    ``cand`` (T,M) int32 candidate rows, ``qrow`` (T,C) int32 query rows
-    (a candidate equal to the query's row is itself and is skipped),
-    ``valid`` (T,M) int32 nonzero where the slot is real. CUDA tensors
-    launch the kernel (``knn_select_coords.launches`` counts launches);
-    CPU tensors run ``select_coords_plain``.
+    ``cand`` (T,M) int32 candidate ids, ``qrow`` (T,C) int32 query ids
+    (a candidate equal to the query's id is itself and is skipped),
+    ``valid`` (T,M) int32 nonzero where the slot is real; 1 <= k <= 128.
+    CUDA tensors launch the kernel (``knn_select_coords.launches`` counts
+    launches); CPU tensors run ``select_coords_plain``.
     """
-    _check(qpts, cpts, cand, qrow, valid, k)
-    T, C, _ = qpts.shape
-    M = cpts.shape[1]
-    dev = qpts.device
-    if dev.type == "cpu":
-        return select_coords_plain(qpts, cpts, cand, qrow, valid, k)
-    if dev.type != "cuda":
-        raise ValueError(f"no select for device {dev}")
-    for name, a in (("qpts", qpts), ("cpts", cpts), ("cand", cand),
-                    ("qrow", qrow), ("valid", valid)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    dists = torch.empty((T, C, k), dtype=torch.float32, device=dev)
-    nbrs = torch.empty((T, C, k, 3), dtype=torch.float32, device=dev)
-    if T == 0:
-        return dists, nbrs
-    fn = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qpts.data_ptr(), cpts.data_ptr(), cand.data_ptr(),
-                 qrow.data_ptr(), valid.data_ptr(), dists.data_ptr(),
-                 nbrs.data_ptr(), T, C, M, k, stream)
-    if err != 0:
-        raise RuntimeError(f"select_coords kernel launch failed: CUDA "
-                           f"error {err}")
-    knn_select_coords.launches += 1
-    return dists, nbrs
+    return _select(knn_select_coords, "select_coords", "pct_select_coords",
+                   select_coords_plain, torch.float32, (3,),
+                   qpts, cpts, cand, qrow, valid, k)
+
+
+def knn_select_rows(qpts: torch.Tensor, cpts: torch.Tensor,
+                    cand: torch.Tensor, qrow: torch.Tensor,
+                    valid: torch.Tensor, k: int):
+    """Same selection as ``knn_select_coords`` -> (dists (T,C,k), rows
+    (T,C,k) int32 = cand[pos], the winners' ids). CUDA tensors launch
+    ``csrc/select_rows.cu:pct_select_rows`` (``knn_select_rows.launches``);
+    CPU tensors run ``select_rows_plain``.
+    """
+    return _select(knn_select_rows, "select_rows", "pct_select_rows",
+                   select_rows_plain, torch.int32, (),
+                   qpts, cpts, cand, qrow, valid, k)
+
+
+def knn_select(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
+               qrow: torch.Tensor, valid: torch.Tensor, k: int):
+    """Same selection as ``knn_select_coords`` -> (dists (T,C,k), pos
+    (T,C,k) int32 winner positions in the M axis). CUDA tensors launch
+    ``csrc/select_rows.cu:pct_select_pos`` (``knn_select.launches``); CPU
+    tensors run ``select_pos_plain``.
+    """
+    return _select(knn_select, "select_rows", "pct_select_pos",
+                   select_pos_plain, torch.int32, (),
+                   qpts, cpts, cand, qrow, valid, k)
 
 
 knn_select_coords.launches = 0
+knn_select_rows.launches = 0
+knn_select.launches = 0

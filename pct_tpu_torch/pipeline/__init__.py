@@ -1,3 +1,10 @@
+from pct_tpu_torch.pipeline.curvature_pipeline import (  # noqa: F401
+    PipelineResult,
+    compute_pointwise_explicit_quadratic_curvature,
+    compute_pointwise_implicit_quadric_curvature,
+    curvature_pipeline,
+    pointwise_curvature,
+)
 from pct_tpu_torch.pipeline.fused import (  # noqa: F401
     FusedResult,
     fast_curvature,

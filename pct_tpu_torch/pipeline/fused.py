@@ -1,21 +1,20 @@
 """Fused pipeline: grid build → kNN → frames → fit → curvature.
 
-Port of ``pct_tpu.pipeline.fused`` for the explicit method, on both of
-its engines. Curvature is evaluated inside the bucketed cell loop
-(``neighbors.cellknn.apply_cellwise_bucketed``); only the per-point
-outputs are moved, directly to the caller's point order.
+Port of ``pct_tpu.pipeline.fused``. Curvature is evaluated inside the
+bucketed cell loop (``neighbors.cellknn.apply_cellwise_bucketed``); only
+the per-point outputs are moved, directly to the caller's point order.
 
-- The list engine (k < 64) takes each query's neighborhood straight from
-  the select's winner coordinates and runs frames → fit → curvature on
-  it.
+- The list engine takes each query's neighborhood straight from the
+  select's winner coordinates and runs frames → fit → curvature on it,
+  for the explicit (Monge patch) or the implicit (quadric) method.
 - The moments engine (``engine="moments"``; what ``fast_curvature``
-  runs for k >= 64, and for smaller k when ``list_engine_ok`` refuses a
-  bucket) reduces each neighborhood to 35 moment sums in the kernel and
-  rebuilds the same chain from them (``fit.moments``), once over the
-  flat stats before the move.
-
-Not in this port yet: the implicit method (raises
-``NotImplementedError``).
+  runs for the explicit method at k >= 64, and at smaller k when
+  ``list_engine_ok`` refuses a bucket) reduces each neighborhood to 35
+  moment sums in the kernel and rebuilds the explicit chain from them
+  (``fit.moments``), once over the flat stats before the move. The
+  implicit method has no moment form: where ``list_engine_ok`` refuses
+  it, ``fast_curvature`` takes the staged path (``knn_cloud_grid`` +
+  ``pointwise_curvature``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -25,10 +24,8 @@ from typing import NamedTuple
 import torch
 
 from pct_tpu_torch.core.device import resolve_device
-from pct_tpu_torch.curvature.explicit import Curvatures, explicit_curvatures
-from pct_tpu_torch.fit.frames import tangent_frames
+from pct_tpu_torch.curvature.explicit import Curvatures
 from pct_tpu_torch.fit.moments import curvature_from_moments_chunked
-from pct_tpu_torch.fit.quadratic import fit_quadratic
 from pct_tpu_torch.neighbors.cellknn import (
     apply_cellwise_bucketed,
     compact_cells,
@@ -39,7 +36,12 @@ from pct_tpu_torch.neighbors.cellknn import (
     split_cells,
 )
 from pct_tpu_torch.neighbors.grid import GridIndex, build_grid, estimate_cell_size
+from pct_tpu_torch.neighbors.knn import knn_cloud_grid
 from pct_tpu_torch.ops.select import KMAX
+from pct_tpu_torch.pipeline.curvature_pipeline import (
+    neighborhood_curvature,
+    pointwise_curvature,
+)
 
 MOMENTS_MIN_K = 64    # fast_curvature always takes the moments engine here
 SPLIT_TO = 128        # query slots a cell row at most, on the moments route
@@ -52,14 +54,18 @@ class FusedResult(NamedTuple):
     kth_dist: torch.Tensor    # (N,) distance to the kth neighbor
 
 
-def _explicit_fn(centered: torch.Tensor, found: torch.Tensor):
-    """Explicit chain over (..., k, 3) neighborhoods: frames → quadratic
-    fit → Monge curvatures. Like the reference, all k slots are used
+def _list_fn(method: str, implicit_mode: str):
+    """The list engine's chain over (..., k, 3) neighborhoods -> (K, H,
+    k1, k2, H², normals). Like the reference, all k slots are used
     unconditionally (``found`` is ignored; rows are audited through the
     exactness certificate)."""
-    del found
-    rotated, _, normal = tangent_frames(centered)
-    return tuple(explicit_curvatures(fit_quadratic(rotated))) + (normal,)
+    def fn(centered: torch.Tensor, found: torch.Tensor):
+        del found
+        curv, normal, _ = neighborhood_curvature(centered, method,
+                                                 implicit_mode)
+        return (*curv, normal)
+
+    return fn
 
 
 def _moments_epilogue(out):
@@ -71,12 +77,12 @@ def _moments_epilogue(out):
 
 
 def _check_slice(k: int, method: str, engine: str | None = None):
-    if method != "explicit":
-        raise NotImplementedError(
-            f"method={method!r}: the implicit-quadric method belongs to a "
-            "later slice of the port (fit/quadric.py, curvature/implicit.py)")
+    if method not in ("explicit", "implicit"):
+        raise ValueError(f"unknown method {method!r}")
     if engine not in (None, "list", "moments"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine == "moments" and method != "explicit":
+        raise ValueError("engine='moments' supports method='explicit' only")
     if k < 1:
         raise ValueError(f"k={k} must be positive")
     if engine == "list" and k > KMAX:
@@ -86,7 +92,8 @@ def _check_slice(k: int, method: str, engine: str | None = None):
 
 
 def _fused_on_grid(grid: GridIndex, k: int, max_cells: int, bucket_spec,
-                   engine: str = "list", split=None) -> FusedResult:
+                   engine: str = "list", split=None, method: str = "explicit",
+                   implicit_mode: str = "exact") -> FusedResult:
     cells = compact_cells(grid, max_cells)
     if split is not None and split[1] > 1:
         cells = split_cells(cells, grid.sorted_points.shape[0], *split)
@@ -95,8 +102,8 @@ def _fused_on_grid(grid: GridIndex, k: int, max_cells: int, bucket_spec,
             grid, cells, k, None, bucket_spec, runner=moments_tile_runner,
             post_fn=_moments_epilogue)
     else:
-        out, exact, kth = apply_cellwise_bucketed(grid, cells, k,
-                                                  _explicit_fn, bucket_spec)
+        out, exact, kth = apply_cellwise_bucketed(
+            grid, cells, k, _list_fn(method, implicit_mode), bucket_spec)
     *curv, normals = out
     return FusedResult(Curvatures(*curv), normals, exact, kth)
 
@@ -104,15 +111,18 @@ def _fused_on_grid(grid: GridIndex, k: int, max_cells: int, bucket_spec,
 def fused_curvature(points: torch.Tensor, num_points: int,
                     cell_size: torch.Tensor, k: int = 20, *, bucket_spec,
                     max_cells: int | None = None, method: str = "explicit",
-                    engine: str = "list", split: tuple | None = None,
+                    implicit_mode: str = "exact", engine: str = "list",
+                    split: tuple | None = None,
                     device: str | torch.device = "cuda") -> FusedResult:
     """Padded points → curvatures through the bucketed cell loop on
     ``device`` (default ``cuda``; raises RuntimeError without a card).
 
     ``bucket_spec`` and ``max_cells`` come from ``probe_grid_buckets``
     (``fast_curvature`` runs the probe); ``max_cells`` defaults to the
-    conservative ``default_max_cells``. ``engine`` is "list" (k < 64) or
-    "moments". ``split=(cap, factor)`` virtual-splits cells to <= cap
+    conservative ``default_max_cells``. ``method`` is "explicit" or
+    "implicit" (``implicit_mode`` "exact" or "reference");
+    ``engine`` is "list" (k <= 128) or "moments" (explicit only).
+    ``split=(cap, factor)`` virtual-splits cells to <= cap
     queries a row (``split_cells``); the spec must then come from
     ``probe_grid_buckets(split_to=cap)``, which returns the factor. No
     exactness repair inside; the ``exact`` output lets the caller audit
@@ -123,12 +133,13 @@ def fused_curvature(points: torch.Tensor, num_points: int,
     if max_cells is None:
         max_cells = default_max_cells(points.shape[0], k)
     grid = build_grid(points.to(dev), num_points, cell_size.to(dev))
-    return _fused_on_grid(grid, k, max_cells, bucket_spec, engine, split)
+    return _fused_on_grid(grid, k, max_cells, bucket_spec, engine, split,
+                          method, implicit_mode)
 
 
 def plan_engine(grid: GridIndex, k: int):
-    """The engine and layout ``fast_curvature`` runs on ``grid``:
-    (engine, bucket_spec, max_cells, split factor).
+    """The engine and layout ``fast_curvature`` runs on ``grid`` for the
+    explicit method: (engine, bucket_spec, max_cells, split factor).
 
     k >= 64 always takes the moments engine; smaller k takes the list
     engine unless ``list_engine_ok`` refuses one of its buckets, exactly
@@ -146,15 +157,21 @@ def plan_engine(grid: GridIndex, k: int):
     return "moments", spec, mc, factor
 
 
-def fast_curvature(cloud, k: int = 20, method: str = "explicit", *,
+def fast_curvature(cloud, k: int = 20, method: str = "explicit",
+                   implicit_mode: str = "exact", *,
                    device: str | torch.device = "cuda") -> FusedResult:
     """Probe-tuned fused curvature on a PointCloud: the fastest path.
 
-    Estimates the grid cell size, chooses the engine and runs its
-    host-side occupancy-bucket probe (``plan_engine``), and executes the
-    bucketed pipeline on ``device`` (default ``cuda``; raises
-    RuntimeError when no card is available). Outputs are (capacity, ...)
-    in the cloud's point order; padding rows are 0.
+    Estimates the grid cell size and runs on ``device`` (default
+    ``cuda``; raises RuntimeError when no card is available). The
+    explicit method takes the engine and layout of ``plan_engine``. The
+    implicit method runs the list engine when ``list_engine_ok`` admits
+    every bucket of the probe (capacity cap max(256, 4k)), at any k;
+    otherwise the staged path, ``knn_cloud_grid`` +
+    ``pointwise_curvature``, whose ``exact`` is the repaired kNN's
+    (all True) and whose kth distance is its last neighbor distance.
+    Outputs are (capacity, ...) in the cloud's point order; padding rows
+    are 0 on the fused routes.
     """
     _check_slice(k, method)
     dev = resolve_device(device)
@@ -162,5 +179,14 @@ def fast_curvature(cloud, k: int = 20, method: str = "explicit", *,
     n = cloud.num_points
     cell = estimate_cell_size(points, n, k)
     grid = build_grid(points, n, cell)
-    engine, spec, mc, factor = plan_engine(grid, k)
-    return _fused_on_grid(grid, k, mc, spec, engine, (SPLIT_TO, factor))
+    if method == "explicit":
+        engine, spec, mc, factor = plan_engine(grid, k)
+        return _fused_on_grid(grid, k, mc, spec, engine, (SPLIT_TO, factor))
+    spec, mc = probe_grid_buckets(grid, capacity_cap=max(256, 4 * k))
+    if all(list_engine_ok(sp.capacity, sp.cand_cap, k) for sp in spec):
+        return _fused_on_grid(grid, k, mc, spec, method=method,
+                              implicit_mode=implicit_mode)
+    res, _ = knn_cloud_grid(cloud, k, device=dev)
+    curv, normals, _ = pointwise_curvature(points, res.indices, method=method,
+                                           implicit_mode=implicit_mode)
+    return FusedResult(curv, normals, res.exact, res.dists[:, -1])

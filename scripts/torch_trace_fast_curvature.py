@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main path goes, on one NVIDIA card.
+"""Where the time of the port's main paths goes, on one NVIDIA card.
 
-Drives ``pct_tpu_torch.pipeline.fast_curvature(k)`` on the 1M-point
-torus (padded to 1<<16, as chip_smoke.py does), warms it up, then traces
-one call with ``torch.profiler`` and prints:
+Drives ``pct_tpu_torch.pipeline.fast_curvature(k)`` (``--path fast``)
+or the library kNN ``pct_tpu_torch.neighbors.knn_cloud_grid(k)``
+(``--path knn``) on the 1M-point torus (padded to 1<<16, as
+chip_smoke.py does), warms it up, then traces one call with
+``torch.profiler`` and prints:
 
 - the card's name and power limit (nvidia-smi);
 - the call's wall time, the device's busy time (union of kernel
@@ -13,10 +15,11 @@ one call with ``torch.profiler`` and prints:
 chip_smoke.py prints the host-side stage times of the same call.
 
 Run from the root of a checkout:
-    python3 scripts/torch_trace_fast_curvature.py [--k K] [--trace-out PATH]
-``--k`` is the neighbor count (default 20, the list engine; k >= 64
-runs the moments engine). ``--trace-out`` also writes the Chrome trace
-of the traced call.
+    python3 scripts/torch_trace_fast_curvature.py [--path fast|knn] [--k K]
+        [--trace-out PATH]
+``--k`` is the neighbor count (default 20: the list engine; k >= 64
+runs the moments engine of ``fast_curvature``). ``--trace-out`` also
+writes the Chrome trace of the traced call.
 """
 
 import argparse
@@ -30,6 +33,8 @@ N_POINTS = 1_000_000
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("fast", "knn"), default="fast",
+                    help="fast_curvature (default) or knn_cloud_grid")
     ap.add_argument("--k", type=int, default=20,
                     help="neighbors per point (default 20)")
     ap.add_argument("--trace-out", type=Path, default=None,
@@ -43,6 +48,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     from chip_smoke import card_label
     from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.neighbors import knn_cloud_grid
     from pct_tpu_torch.pipeline import fast_curvature
     from pct_tpu_torch.shapes import generate_shape
 
@@ -50,14 +56,15 @@ def main():
     print(f"card: {label}", flush=True)
     pts, _ = generate_shape("torus", N_POINTS, radius=1.0)
     cloud = from_numpy(pts, pad_multiple=1 << 16, device="cuda")
+    path = fast_curvature if args.path == "fast" else knn_cloud_grid
     for _ in range(2):
-        fast_curvature(cloud, args.k)
+        path(cloud, args.k)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fast_curvature(cloud, args.k)
+        path(cloud, args.k)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -69,7 +76,7 @@ def main():
             busy += b - max(a, end)
             end = b
     busy_s = busy * 1e-6
-    print(f"[{label}] traced call, k={args.k}: wall {wall * 1e3:.1f} ms, "
+    print(f"[{label}] traced {path.__name__} call, k={args.k}: wall {wall * 1e3:.1f} ms, "
           f"device busy {busy_s * 1e3:.1f} ms ({len(spans)} device events), "
           f"idle share {1 - busy_s / wall:.3f}")
     print(prof.key_averages().table(sort_by="self_device_time_total",

@@ -15,7 +15,14 @@ from pct_tpu_torch.ops.moments import (
     moments_plain,
     stats_agreement,
 )
-from pct_tpu_torch.ops.select import knn_select_coords, select_coords_plain
+from pct_tpu_torch.ops.select import (
+    knn_select,
+    knn_select_coords,
+    knn_select_rows,
+    select_coords_plain,
+    select_pos_plain,
+    select_rows_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +56,8 @@ def _tile(seed, T, C, M, dup=False, sparse=False):
     (24, 16, 96, 20, False, True),      # fewer than k valid candidates
     (8, 256, 520, 20, False, False),    # the probe's largest capacity
     (16, 8, 8, 20, False, False),       # fewer candidate slots than k
+    (8, 64, 700, 100, False, False),    # the 128-entry list
+    (4, 37, 300, 128, False, False),    # the largest k
 ])
 def test_select_coords_kernel_bit_identical(cuda, T, C, M, k, dup, sparse):
     ops = [torch.from_numpy(a).to(cuda)
@@ -61,6 +70,59 @@ def test_select_coords_kernel_bit_identical(cuda, T, C, M, k, dup, sparse):
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
     assert torch.equal(n_k.view(torch.int32), n_p.view(torch.int32))
     if sparse:
+        assert (d_k > 1e18).any()
+
+
+def _ids_tile(seed, T, C, M, dup=False, empty=False):
+    """Random tile with distinct candidate ids; the first min(C, M) query
+    slots are candidates themselves (self hits); ``dup`` makes every
+    point appear twice (exact ties between distinct ids); ``empty`` makes
+    every other row's candidates all invalid."""
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((T, M, 3)).astype(np.float32)
+    if dup:
+        p[:, 1::2] = p[:, 0::2][:, :M // 2]
+    q = rng.standard_normal((T, C, 3)).astype(np.float32)
+    cand = np.stack([rng.permutation(10 * M)[:M] for _ in range(T)]
+                    ).astype(np.int32)
+    qrow = rng.integers(10 * M, 20 * M, (T, C)).astype(np.int32)
+    s = min(C, M)
+    q[:, :s], qrow[:, :s] = p[:, :s], cand[:, :s]
+    valid = (rng.random((T, M)) < 0.9).astype(np.int32)
+    if empty:
+        valid[::2] = 0
+    return q, p, cand, qrow, valid
+
+
+@pytest.mark.parametrize("want", ["rows", "pos"])
+@pytest.mark.parametrize("T,C,M,k,dup,empty", [
+    (16, 1, 300, 1, False, False),      # C = 1, k = 1
+    (12, 37, 520, 20, False, False),    # C % 32 != 0, three chunks
+    (3, 400, 700, 64, False, False),    # C = 400, k = 64
+    (6, 64, 1100, 100, False, False),   # the k=100 list, five chunks
+    (4, 128, 1064, 128, False, False),  # the largest k, 128-entry list
+    (8, 16, 40, 64, False, False),      # fewer candidate slots than k
+    (12, 32, 200, 20, True, False),     # exact distance ties
+    (8, 24, 400, 100, False, True),     # empty rows
+])
+def test_select_ids_kernels_bit_identical(cuda, want, T, C, M, k, dup,
+                                          empty):
+    ops = [torch.from_numpy(a).to(cuda)
+           for a in _ids_tile(T * C + M + k, T, C, M, dup, empty)]
+    kernel, plain = ((knn_select_rows, select_rows_plain) if want == "rows"
+                     else (knn_select, select_pos_plain))
+    before = kernel.launches
+    d_k, w_k = kernel(*ops, k)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    d_p, w_p = plain(*ops, k)
+    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+    assert torch.equal(w_k, w_p)
+    if want == "pos":     # the rows kernel's ids are cand[pos]
+        _, rows = knn_select_rows(*ops, k)
+        assert torch.equal(rows, torch.gather(
+            ops[2], 1, w_k.reshape(T, -1).long()).reshape(T, C, k))
+    if empty or M < k:
         assert (d_k > 1e18).any()
 
 

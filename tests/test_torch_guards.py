@@ -1,5 +1,5 @@
 """Guards of the port: no JAX anywhere in it, CUDA by default with no
-quiet CPU fallback, TF32 off, and the slices not ported yet refuse."""
+quiet CPU fallback, TF32 off, and the slices of earlier refusals run."""
 
 import ast
 import pathlib
@@ -12,7 +12,12 @@ import torch
 
 import pct_tpu_torch
 from pct_tpu_torch.core import from_numpy, from_reference_arrays
-from pct_tpu_torch.pipeline import fast_curvature, fused_curvature
+from pct_tpu_torch.neighbors import knn_cloud_grid
+from pct_tpu_torch.pipeline import (
+    curvature_pipeline,
+    fast_curvature,
+    fused_curvature,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "pct_tpu")
@@ -64,6 +69,12 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
                         bucket_spec=())
     with pytest.raises(RuntimeError, match="cuda"):
         from_numpy(pts)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fast_curvature(cloud, 20, method="implicit")
+    with pytest.raises(RuntimeError, match="cuda"):
+        knn_cloud_grid(cloud, 20)
+    with pytest.raises(RuntimeError, match="cuda"):
+        curvature_pipeline(cloud, 20)
 
 
 def test_tf32_is_off_after_import():
@@ -76,15 +87,11 @@ def test_tf32_is_off_after_import():
     {"k": 64}, {"method": "implicit"}, {"engine": "moments"}],
     ids=["k64", "implicit", "moments"])
 def test_later_slices_refuse(kwargs):
-    """Only the implicit method still belongs to a later slice; the
-    moments engine (k >= 64, or ``engine="moments"``) runs on the CPU and
-    stays finite."""
+    """Every slice named here now runs on the CPU and stays finite: the
+    moments engine (k >= 64, or ``engine="moments"``) and the implicit
+    method (the list engine on this 64-point cloud)."""
     pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
     cloud = from_numpy(pts, device="cpu")
-    if kwargs.get("method") == "implicit":
-        with pytest.raises(NotImplementedError, match="slice"):
-            fast_curvature(cloud, device="cpu", **kwargs)
-        return
     if "engine" in kwargs:
         state = from_reference_arrays(cloud.points.numpy(), 64, k=20,
                                       device="cpu")
@@ -95,6 +102,9 @@ def test_later_slices_refuse(kwargs):
         assert res.exact[:64].all()
     else:
         res = fast_curvature(cloud, device="cpu", **kwargs)
-        assert not res.exact.any()    # 63 other points: every row under k
+        if "k" in kwargs:
+            assert not res.exact.any()    # 63 other points: every row under k
+        else:
+            assert res.exact[:64].all()
     for a in (*res.curv, res.normals, res.kth_dist):
         assert torch.isfinite(a).all()

@@ -34,6 +34,18 @@ without printing its result line:
    d. ``fast_curvature(method="implicit")`` at k=20 (the list engine)
       and k=100 (``knn_cloud_grid`` + ``pointwise_curvature``), against
       the analytic torus;
+   e. the band kNN at k=20 on the whole cloud, at the smallest band
+      (multiple of 128) that every row block fits (the exact fraction at
+      the default band is printed): the band kernel against
+      its plain version, bit for bit, on every row block the plain
+      version reaches within BAND_PLAIN_BUDGET_S (in a seeded random
+      order); ``knn_cellwise_band`` against the port's rows path in
+      sorted space (``knn_cellwise(original_ids=False)``): exact >=
+      0.999, kth distances bit-equal and winner sets equal up to ties at
+      the kth distance on rows both certify; 1 band launch a call;
+   f. the neighbor study at its defaults, and ``pointwise_curvature``
+      with an all-True mask (K as unmasked) and with the farthest half
+      of every row masked (no NaN);
 6. timings, each printed beside the card's name and power limit;
 7. the kernel table (one JSON line) and the result line.
 
@@ -60,6 +72,9 @@ TIMED_REPS = 5
 PLAIN_BUDGET_S = 60.0            # plain-version time for the k=100 rows check
 CUT_ROWS = 4096                  # cell rows a bucket keeps past that budget
 SELECT_COORDS_PR2_MS = (13.62, 13.80)   # PERF.md, four runs
+BAND_BC = 8                      # cells a row block of the band kNN
+BAND_PLAIN_BUDGET_S = 30.0       # plain-version time for the band check
+BAND_CHUNK_BLOCKS = 512          # row blocks a plain-version call
 
 
 def log(*a):
@@ -448,6 +463,245 @@ def kernel_row(name, source, replaces, launches, max_err, per_bucket,
     }
 
 
+def band_vs_plain(ops, k, bc, cap, band):
+    """The band kernel against its plain version, bit for bit, on row
+    blocks in a seeded random order until BAND_PLAIN_BUDGET_S of
+    plain-version time. Returns (kernel outputs, blocks checked, rows
+    checked, max abs err, plain seconds, whether every block was
+    checked)."""
+    import torch
+
+    from pct_tpu_torch.experimental import band_select_plain, knn_band_select
+
+    nb = ops[3].shape[0]
+    q = bc * cap
+    got = knn_band_select(*ops, k=k, bc=bc, cap=cap, band=band)
+    torch.cuda.synchronize()
+    d_k, r_k, c_k = (a.reshape(nb, q, *a.shape[1:]) for a in got)
+    order = torch.randperm(nb, generator=torch.Generator().manual_seed(0))
+    checked = mismatched = 0
+    max_err = 0.0
+    plain_s = 0.0
+    for s in range(0, nb, BAND_CHUNK_BLOCKS):
+        if plain_s > BAND_PLAIN_BUDGET_S:
+            break
+        idx = order[s:s + BAND_CHUNK_BLOCKS].to(ops[3].device)
+        sub = ops[:3] + tuple(a[idx] for a in ops[3:])
+        t0 = time.perf_counter()
+        d_p, r_p, c_p = band_select_plain(*sub, k, bc, cap, band)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        d_p, r_p, c_p = (a.reshape(idx.numel(), q, *a.shape[1:])
+                         for a in (d_p, r_p, c_p))
+        same = ((d_k[idx].view(torch.int32) == d_p.view(torch.int32))
+                .all(-1) & (r_k[idx] == r_p).all(-1)
+                & (c_k[idx].view(torch.int32) == c_p.view(torch.int32)))
+        checked += idx.numel()
+        mismatched += int((~same).sum())
+        max_err = max(max_err, float((d_k[idx] - d_p).abs().max()),
+                      float((r_k[idx] - r_p).abs().max()),
+                      float((c_k[idx] - c_p).abs().max()))
+    log(f"band kernel vs plain: {checked} of {nb} row blocks ({checked * q} "
+        f"query slots) compared in {plain_s:.1f} s of plain-version time, "
+        f"{mismatched} slots mismatched, max abs err {max_err}")
+    check(mismatched == 0 and max_err == 0.0,
+          "band kernel bit-identical to its plain version")
+    return got, checked, checked * q, max_err, plain_s, checked == nb
+
+
+def band_vs_rows(band_res, rows_res, n, k):
+    """``knn_cellwise_band`` against the rows path on rows both certify:
+    kth distances bit-equal, winner sets equal except for candidates at
+    the kth distance. Returns (rows compared, rows whose sets differ,
+    rows that differ only in order, rows with a tie inside the list at
+    the kth distance)."""
+    import torch
+
+    both = band_res.exact[:n] & rows_res.exact[:n]
+    kth_b = band_res.dists[:n, k - 1][both]
+    kth_r = rows_res.dists[:n, k - 1][both]
+    check(bool((kth_b.view(torch.int32) == kth_r.view(torch.int32)).all()),
+          "band kth distances bit-equal to the rows path's")
+    rows = both.nonzero().flatten()
+    differ = order_only = tied = 0
+    for s in range(0, rows.numel(), 1 << 17):
+        r = rows[s:s + (1 << 17)]
+        ib, ir = band_res.indices[r], rows_res.indices[r]
+        db, dr = band_res.dists[r], rows_res.dists[r]
+        kth = db[:, k - 1:k]
+        in_r = (ib[:, :, None] == ir[:, None, :]).any(-1)
+        in_b = (ir[:, :, None] == ib[:, None, :]).any(-1)
+        check(bool(((in_r | (db == kth)).all() & (in_b | (dr == kth)).all())),
+              "band winners differ from the rows path's only at the kth "
+              "distance")
+        set_diff = ~in_r.all(-1)
+        differ += int(set_diff.sum())
+        order_only += int((~set_diff & (ib != ir).any(-1)).sum())
+        tied += int((db[:, k - 2] == db[:, k - 1]).sum())
+    return rows.numel(), differ, order_only, tied
+
+
+def fitted_band(grid, cells, blocks, cap, bc):
+    """(band, span): the smallest multiple of 128 rows that holds every
+    row block's runs, and the widest block's span in rows (at most
+    MAX_BAND: a wider block is clipped to it and fails its band check)."""
+    import torch
+
+    from pct_tpu_torch.experimental import MAX_BAND
+    from pct_tpu_torch.experimental.band_knn import band_operands
+
+    wide = band_operands(grid, cells, blocks, cap, bc, MAX_BAND)[0]
+    span = int(torch.where(wide[5] > 0, wide[4] + wide[5], 0).max())
+    return -(-span // 128) * 128, span
+
+
+def band_phase(label, cloud, counters, none):
+    """Phase 5e: the band kNN on the whole cloud at k=20."""
+    import torch
+
+    from pct_tpu_torch.experimental import (
+        band_select_plain,
+        build_row_blocks,
+        knn_band_select,
+        knn_cellwise_band,
+    )
+    from pct_tpu_torch.experimental.band_knn import band_operands, default_band
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+    from pct_tpu_torch.ops.select import knn_select_rows
+
+    n = cloud.num_points
+    k, bc = K_LIST, BAND_BC
+    cell = estimate_cell_size(cloud.points, n, k)
+    grid = build_grid(cloud.points, n, cell)
+    cells, cap, mc, cand_cap = cellknn.probe_grid(grid)
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        blocks = build_row_blocks(cells, bc)
+        host.append(time.perf_counter() - t0)
+    nb = blocks.shape[0] // bc
+    # The default band (bc+3)*cap does not hold a block whose row has gaps
+    # in x (its runs in a neighbor row span more than bc+2 cells), and its
+    # rows lose their certificate. The phase runs at the smallest multiple
+    # of 128 that every block's runs fit, and reports the default's exact.
+    band_d = default_band(bc, cap)
+    ops_d, _, _, ok_d = band_operands(grid, cells, blocks, cap, bc, band_d)
+    exact_d = float(knn_cellwise_band(grid, cells, blocks, k, cap, bc=bc)
+                    .exact[:n].float().mean())
+    band, span = fitted_band(grid, cells, blocks, cap, bc)
+    log(f"band kNN k={k}: {int(cells.num_cells)} cells, {nb} row blocks of "
+        f"{bc}, cap {cap}, cand_cap {cand_cap}, {nb * bc * cap} query slots;"
+        f" default band {band_d}: {int(ok_d.sum())} blocks fit, exact "
+        f"{exact_d:.6f}; widest block span {span} rows, band {band}")
+    ops, _, ok_q, band_ok = band_operands(grid, cells, blocks, cap, bc, band)
+    check(bool(band_ok.all()), "every row block's runs fit the band")
+    got, blocks_checked, rows_checked, band_err, plain_s, all_blocks = \
+        band_vs_plain(ops, k, bc, cap, band)
+    # the work the data needs: each real query slot against its cell's runs
+    real = ok_q.reshape(nb, bc, cap).sum(-1).to(torch.int64)
+    pairs = int((ops[5].sum(-1).to(torch.int64) * real).sum())
+    nb_bytes = nbytes(*ops, *got)
+    del got
+
+    res, walls, launches = drive(
+        lambda: knn_cellwise_band(grid, cells, blocks, k, cap, bc=bc,
+                                  band=band, lean=False),
+        f"knn_cellwise_band k={k}", counters, {**none, "band_select": 1})
+    rows_res = cellknn.knn_cellwise(grid, cells, k, capacity=cap,
+                                    cand_cap=cand_cap, original_ids=False)
+    exact = float(res.exact[:n].float().mean())
+    log(f"knn_cellwise_band k={k}: exact {exact:.6f} (rows path "
+        f"{float(rows_res.exact[:n].float().mean()):.6f})")
+    check(exact >= 0.999, "band kNN exact fraction >= 0.999")
+    compared, differ, order_only, tied = band_vs_rows(res, rows_res, n, k)
+    log(f"band vs rows path on {compared} rows both certify: kth distances "
+        f"bit-equal; {differ} rows whose winner sets differ (ties at the "
+        f"kth distance), {order_only} rows differing only in order, {tied} "
+        f"rows with a tie inside the list at the kth distance")
+    del res, rows_res
+
+    ms = event_ms(lambda: knn_band_select(*ops, k=k, bc=bc, cap=cap,
+                                          band=band), TIMED_REPS)
+    ms_d = event_ms(lambda: knn_band_select(*ops_d, k=k, bc=bc, cap=cap,
+                                            band=band_d), TIMED_REPS)
+    del ops_d
+    if not all_blocks:      # else the check above timed a whole plain pass
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        band_select_plain(*ops, k, bc, cap, band)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    plain_ms = plain_s * 1e3
+    b_ms, b_by = bound(pairs, PAIR_FLOPS, 0, nb_bytes)
+    # the rows kernel on the same cells, one bucket (the compared path)
+    spec = (cellknn.BucketSpec(hi_key=1 << 30, capacity=cap,
+                               cand_cap=cand_cap, max_cells=mc),)
+    (_, args), = cellknn.bucketed_tile_args(grid, cells, spec)
+    sel = cellknn._select_operands(grid, args, cap, cand_cap)[0]
+    rows_ms = event_ms(lambda: knn_select_rows(*sel, k), TIMED_REPS)
+    del sel, ops
+    wall = statistics.median(walls[1:])
+    log(f"[{label}] knn_cellwise_band k={k}, 1M torus: warm wall "
+        f"{wall:.4f} s/call (median of {len(walls) - 1}; cold first call "
+        f"{walls[0]:.3f} s), {N_POINTS / wall:.0f} points/s; "
+        f"build_row_blocks host time {statistics.median(host) * 1e3:.1f} ms "
+        f"(median of 3)")
+    log(f"[{label}] band kernel k={k}: {ms:.3f} ms/call (1 launch/call) over "
+        f"{nb} blocks, cap {cap}, band {band}, "
+        f"{ms * 1e3 / nb:.3f} us/block; plain {plain_ms:.1f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}); at the default band {band_d}: "
+        f"{ms_d:.3f} ms/call; rows kernel on the same cells in one "
+        f"bucket (C {cap}, M {cand_cap}): {rows_ms:.3f} ms")
+    return dict(pairs=pairs, bytes=nb_bytes, ms=ms, plain_ms=plain_ms,
+                default_band_ms=ms_d,
+                launches=launches["band_select"], max_err=band_err,
+                blocks_checked=blocks_checked, rows_checked=rows_checked)
+
+
+def study_phase(label, cloud):
+    """Phase 5f: the neighbor study and masked ``pointwise_curvature``."""
+    import torch
+
+    from pct_tpu_torch.neighbors import knn_cloud_grid
+    from pct_tpu_torch.pipeline import (
+        explicit_quadratic_neighbor_study,
+        pointwise_curvature,
+    )
+
+    n = cloud.num_points
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k_rec, per = explicit_quadratic_neighbor_study(cloud)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    conv = per >= 0
+    log(f"[{label}] neighbor study (500 samples, kmax 99), 1M torus: "
+        f"recommended k {int(k_rec)}, {int(conv.sum())} samples converged "
+        f"(median k {float(per[conv].float().median()) if conv.any() else -1}"
+        f"), wall {wall:.3f} s")
+    check(tuple(per.shape) == (500,) and 4 <= int(k_rec) <= 100,
+          "neighbor study: 500 samples, recommended k in [4, 100]")
+    res, _ = knn_cloud_grid(cloud, K_LIST)
+    pts, idx = cloud.points, res.indices
+    plain = pointwise_curvature(pts, idx)[0].K[:n]
+    ones = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    masked = pointwise_curvature(pts, idx, neighbor_mask=ones)[0].K[:n]
+    fin = torch.isfinite(plain)
+    diff = float((masked - plain)[fin].abs().max())
+    scale = float(plain[fin].abs().max())
+    log(f"pointwise_curvature, all-True mask vs unmasked k={K_LIST}: "
+        f"{int(fin.sum())} finite rows, max |dK| {diff:.3e} (max|K| "
+        f"{scale:.4g})")
+    check(diff <= 1e-6 * scale, "all-True mask K within 1e-6 max|K|")
+    near = ones & (torch.arange(K_LIST, device=idx.device) < K_LIST // 2)
+    half = pointwise_curvature(pts, idx, neighbor_mask=near)
+    nan = sum(int(a[:n].isnan().sum()) for a in (*half[0], half[1]))
+    log(f"pointwise_curvature, nearest {K_LIST // 2} of {K_LIST} slots: "
+        f"{nan} NaN")
+    check(nan == 0, "half-masked pointwise_curvature: no NaN")
+
+
 def main():
     import torch
 
@@ -466,6 +720,7 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.experimental import knn_band_select
     from pct_tpu_torch.neighbors import cellknn
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.ops import build
@@ -501,7 +756,8 @@ def main():
     cloud = from_numpy(pts, pad_multiple=PAD_MULTIPLE, device=dev)
     n = cloud.num_points
     counters = {"select_coords": knn_select_coords, "moments": knn_moments,
-                "select_rows": knn_select_rows, "select_pos": knn_select}
+                "select_rows": knn_select_rows, "select_pos": knn_select,
+                "band_select": knn_band_select}
     none = {name: 0 for name in counters}
 
     # --- 3. list engine, k=20 ---
@@ -626,6 +882,9 @@ def main():
     imp100_err = implicit_accuracy(imp100, cloud, pts, K_MOM)
     del imp100
 
+    band_row = band_phase(label, cloud, counters, none)
+    study_phase(label, cloud)
+
     # --- 6. numbers ---
     for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
                         (f"fast_curvature k={K_MOM}", walls100),
@@ -664,8 +923,13 @@ def main():
                    "pct_tpu/ops/pallas_select.py:60",
                    launches_knn["select_pos"], ids_err,
                    ids_buckets["select_pos"]),
+        kernel_row("band_select", "pct_tpu_torch/csrc/band_select.cu",
+                   "pct_tpu/experimental/pallas_band.py:49",
+                   band_row["launches"], band_row["max_err"], [band_row]),
     ]
     rows[1]["max_err_ratio"] = mom_ratio
+    for key in ("blocks_checked", "rows_checked", "default_band_ms"):
+        rows[4][key] = band_row[key]
     for r in rows:
         log(f"[{label}] {r['name']} kernel: {r['ms']:.3f} ms/call "
             f"({r['launches'] // 4} launches/call), plain "

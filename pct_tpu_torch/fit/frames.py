@@ -9,12 +9,14 @@ Port of ``pct_tpu.fit.frames`` (the reference's per-point
 - normal = eigenvector of the smallest eigenvalue (closed-form 3×3);
 - sign fix: flip the normal when its dot with ``pts[-1] - pts[0]`` (the
   farthest minus the nearest neighbor; slots are distance-sorted) is
-  negative;
+  negative; with a mask, the farthest VALID slot stands for ``pts[-1]``;
 - Rodrigues rotation R = I + K + K²(1-c)/s² taking the normal to +z,
   identity when s < 1e-8 (also for a normal of exactly -z: the
   reference's quirk, kept).
 
-All elementwise over the leading axes — no batched 3×3 matmuls.
+All elementwise over the leading axes — no batched 3×3 matmuls. An
+optional (..., k) bool ``mask`` makes padded neighbor slots inert, with
+the JAX package's masked formulas; without one, the unmasked path runs.
 """
 
 from __future__ import annotations
@@ -24,15 +26,31 @@ import torch
 from pct_tpu_torch.fit.eigh3 import smallest_eigvec3
 
 
-def neighborhood_covariance(centered: torch.Tensor) -> torch.Tensor:
-    """(..., k, 3) centered neighborhoods -> (..., 3, 3) covariance."""
-    cnt = centered.shape[-2]
+def neighborhood_covariance(centered: torch.Tensor,
+                            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., k, 3) centered neighborhoods -> (..., 3, 3) covariance. With
+    a (..., k) bool ``mask``, over the valid slots only: their mean, and
+    the divisor from their count (both counts clamped to at least 1)."""
     x, y, z = centered[..., 0], centered[..., 1], centered[..., 2]
-    inv = 1.0 / max(cnt, 1)
-    x = x - (torch.sum(x, -1) * inv)[..., None]
-    y = y - (torch.sum(y, -1) * inv)[..., None]
-    z = z - (torch.sum(z, -1) * inv)[..., None]
-    f = 1.0 / max(cnt - 1.0, 1.0)
+    if mask is None:
+        cnt = centered.shape[-2]
+        inv = 1.0 / max(cnt, 1)
+        x = x - (torch.sum(x, -1) * inv)[..., None]
+        y = y - (torch.sum(y, -1) * inv)[..., None]
+        z = z - (torch.sum(z, -1) * inv)[..., None]
+        f = 1.0 / max(cnt - 1.0, 1.0)
+    else:
+        m = torch.broadcast_to(mask, centered.shape[:-1]).to(centered.dtype)
+        cnt = torch.clamp_min(torch.sum(m, -1), 1.0)
+        # the same strided layout as the unmasked sums: an all-True mask
+        # then reduces in the same order and gives the same bits
+        cm = centered * m[..., None]
+        x, y, z = cm[..., 0], cm[..., 1], cm[..., 2]
+        inv = 1.0 / cnt
+        x = (x - (torch.sum(x, -1) * inv)[..., None]) * m
+        y = (y - (torch.sum(y, -1) * inv)[..., None]) * m
+        z = (z - (torch.sum(z, -1) * inv)[..., None]) * m
+        f = 1.0 / torch.clamp_min(cnt - 1.0, 1.0)
     sxx, syy, szz = (torch.sum(x * x, -1) * f, torch.sum(y * y, -1) * f,
                      torch.sum(z * z, -1) * f)
     sxy, sxz, syz = (torch.sum(x * y, -1) * f, torch.sum(x * z, -1) * f,
@@ -44,10 +62,22 @@ def neighborhood_covariance(centered: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
-def estimate_normals(centered: torch.Tensor):
-    """(..., k, 3) -> (normal (...,3) sign-fixed, λ_min (...,))."""
-    lam, n = smallest_eigvec3(neighborhood_covariance(centered))
-    ref_vec = centered[..., -1, :] - centered[..., 0, :]
+def estimate_normals(centered: torch.Tensor,
+                     mask: torch.Tensor | None = None):
+    """(..., k, 3) -> (normal (...,3) sign-fixed, λ_min (...,)). With a
+    mask the sign reference is the farthest valid slot, ``last =
+    max(where(mask, slot, -1))`` clamped to 0, minus slot 0."""
+    lam, n = smallest_eigvec3(neighborhood_covariance(centered, mask))
+    if mask is None:
+        far = centered[..., -1, :]
+    else:
+        slots = torch.arange(centered.shape[-2], device=centered.device)
+        last = torch.clamp_min(torch.max(torch.where(mask, slots, -1),
+                                         dim=-1).values, 0)
+        last = torch.broadcast_to(last, centered.shape[:-2])
+        far = torch.gather(centered, -2, last[..., None, None].expand(
+            last.shape + (1, 3)))[..., 0, :]
+    ref_vec = far - centered[..., 0, :]
     flip = torch.sum(n * ref_vec, dim=-1) < 0.0
     return torch.where(flip[..., None], -n, n), lam
 
@@ -79,14 +109,16 @@ def rodrigues_to_z(normal: torch.Tensor) -> torch.Tensor:
     return torch.where(small, eye, R)
 
 
-def tangent_frames(centered: torch.Tensor):
+def tangent_frames(centered: torch.Tensor, mask: torch.Tensor | None = None):
     """(rotated (...,k,3), R (...,3,3), normal (...,3)): the neighborhood
-    expressed with its best-fit plane as the xy-plane (rotated = pts Rᵀ).
+    expressed with its best-fit plane as the xy-plane (rotated = pts Rᵀ),
+    the frame from the slots where ``mask`` is True (every slot is
+    rotated).
 
     R p is applied as p + v×p + fac·v×(v×p), the same formula and
     fallback as ``rodrigues_to_z``.
     """
-    normal, _ = estimate_normals(centered)
+    normal, _ = estimate_normals(centered, mask)
     R = rodrigues_to_z(normal)
     nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
     vx, vy = ny, -nx

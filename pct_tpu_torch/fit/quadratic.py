@@ -64,22 +64,32 @@ def cholesky_solve(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return cholesky_apply(cholesky_factor(G), rhs)
 
 
-def fit_quadratic(rotated: torch.Tensor) -> torch.Tensor:
+def fit_quadratic(rotated: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
     """(..., k, 3) rotated neighborhoods -> (..., 6) coefficients
     [A, B, C, D, E, F].
 
     Each tangent axis is scaled to unit extent first (lattice-sampled
     scans have strongly elliptical neighborhoods), z is left unscaled,
-    and the coefficients are unscaled afterwards.
+    and the coefficients are unscaled afterwards. With a (..., k) bool
+    ``mask`` only the valid slots count: the extents are their maxima
+    and every design column is multiplied by the mask.
     """
+    x2, y2 = rotated[..., 0] ** 2, rotated[..., 1] ** 2
+    if mask is not None:
+        x2, y2 = x2 * mask, y2 * mask
     sa = torch.sqrt(torch.clamp_min(
-        torch.max(rotated[..., 0] ** 2, dim=-1).values, 1e-20))[..., None]
+        torch.max(x2, dim=-1).values, 1e-20))[..., None]
     sb = torch.sqrt(torch.clamp_min(
-        torch.max(rotated[..., 1] ** 2, dim=-1).values, 1e-20))[..., None]
+        torch.max(y2, dim=-1).values, 1e-20))[..., None]
     a = rotated[..., 0] / sa
     b = rotated[..., 1] / sb
     cols = [a * a, b * b, a * b, a, b, torch.ones_like(a)]
     z = rotated[..., 2]
+    if mask is not None:
+        m = torch.broadcast_to(mask, rotated.shape[:-1]).to(rotated.dtype)
+        cols = [c * m for c in cols[:5]] + [m]
+        z = z * m
     Gq = [[None] * 6 for _ in range(6)]
     for i in range(6):
         for j in range(i, 6):

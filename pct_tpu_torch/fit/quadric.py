@@ -53,7 +53,8 @@ def quadric_design(pts: torch.Tensor) -> torch.Tensor:
                         torch.ones_like(x)], dim=-1)
 
 
-def fit_quadric(centered: torch.Tensor, scale_normalize: bool = True,
+def fit_quadric(centered: torch.Tensor, mask: torch.Tensor | None = None,
+                scale_normalize: bool = True,
                 solver: str = "inverse") -> torch.Tensor:
     """(..., k, 3) query-centered neighborhoods -> (..., 10) unit
     coefficients.
@@ -61,17 +62,25 @@ def fit_quadric(centered: torch.Tensor, scale_normalize: bool = True,
     ``scale_normalize`` scales each neighborhood to unit radius before
     the Gram matrix is built (float32 conditioning), unscales the
     coefficients per monomial degree afterwards and renormalizes.
-    ``solver``: "inverse" (``smallest_eigvec_10``) or "eigh".
+    ``solver``: "inverse" (``smallest_eigvec_10``) or "eigh". With a
+    (..., k) bool ``mask`` only the valid slots count: the radius is
+    their largest and every design column is multiplied by the mask.
     """
     if solver not in ("inverse", "eigh"):
         raise ValueError(f"unknown solver {solver!r}")
     if scale_normalize:
-        h2 = torch.max(torch.sum(centered ** 2, dim=-1), dim=-1).values
+        r2 = torch.sum(centered ** 2, dim=-1)
+        if mask is not None:
+            r2 = r2 * mask
+        h2 = torch.max(r2, dim=-1).values
         h = torch.sqrt(torch.clamp_min(h2, 1e-20))[..., None, None]
     else:
         h = torch.ones(centered.shape[:-2] + (1, 1), dtype=centered.dtype,
                        device=centered.device)
     cols = quadric_design(centered / h).unbind(-1)
+    if mask is not None:
+        m = torch.broadcast_to(mask, centered.shape[:-1]).to(centered.dtype)
+        cols = [c * m for c in cols[:9]] + [m]
     Gq = [[None] * 10 for _ in range(10)]
     for i in range(10):
         for j in range(i, 10):

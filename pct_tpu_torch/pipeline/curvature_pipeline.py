@@ -8,9 +8,8 @@ stages: ``knn_cloud_grid`` finds every point's k nearest neighbors
 query point (not the centroid) and runs frames → fit → curvature in
 chunks of rows. Unlike ``fast_curvature`` it also returns the fit
 coefficients and the neighbor indices and distances.
-
-Masked neighborhoods (``neighbor_mask``) are not in the port yet and
-raise ``NotImplementedError``.
+``pointwise_curvature(neighbor_mask=)`` fits only the valid slots of
+each neighborhood.
 """
 
 from __future__ import annotations
@@ -41,19 +40,21 @@ class PipelineResult(NamedTuple):
 
 
 def neighborhood_curvature(centered: torch.Tensor, method: str = "explicit",
-                           implicit_mode: str = "exact"):
+                           implicit_mode: str = "exact",
+                           mask: torch.Tensor | None = None):
     """(..., k, 3) query-centered neighborhoods -> (Curvatures, normals
     (..., 3), coeffs (..., 6 or 10)): the reference's per-point chain,
     batched over the leading axes. "explicit" fits the Monge patch in the
     tangent frame; "implicit" fits the quadric in the original frame
-    (the frame's normal is still returned)."""
+    (the frame's normal is still returned). ``mask`` (..., k) bool: the
+    frame and the fit use only the valid slots."""
     if method == "explicit":
-        rotated, _, normal = tangent_frames(centered)
-        coeffs = fit_quadratic(rotated)
+        rotated, _, normal = tangent_frames(centered, mask)
+        coeffs = fit_quadratic(rotated, mask)
         return explicit_curvatures(coeffs), normal, coeffs
     if method == "implicit":
-        normal, _ = estimate_normals(centered)
-        coeffs = fit_quadric(centered)
+        normal, _ = estimate_normals(centered, mask)
+        coeffs = fit_quadric(centered, mask)
         return implicit_curvatures(coeffs, mode=implicit_mode), normal, coeffs
     raise ValueError(f"unknown method {method!r}")
 
@@ -61,19 +62,21 @@ def neighborhood_curvature(centered: torch.Tensor, method: str = "explicit",
 def pointwise_curvature(points: torch.Tensor, indices: torch.Tensor,
                         method: str = "explicit",
                         tile: int = ROWS_PER_CHUNK,
-                        implicit_mode: str = "exact", neighbor_mask=None):
+                        implicit_mode: str = "exact",
+                        neighbor_mask: torch.Tensor | None = None):
     """points (N,3) + neighbor indices (Q,k) -> (Curvatures, normals
-    (Q,3), coeffs (Q,...)); query i is points[i]. Runs on the tensors'
-    device, in chunks of ``tile`` rows."""
-    if neighbor_mask is not None:
-        raise NotImplementedError(
-            "neighbor_mask: masked neighborhoods are not in the port yet")
+    (Q,3), coeffs (Q,...)); query i is points[i]. ``neighbor_mask``
+    (Q,k) bool marks the valid neighbor slots (distance-sorted, as the
+    sign fix reads the farthest valid one). Runs on the tensors' device,
+    in chunks of ``tile`` rows."""
     nq = indices.shape[0]
     parts = []
     for s in range(0, nq, tile):
         idx = indices[s:s + tile].long()
         centered = points[idx] - points[s:s + idx.shape[0], None, :]
-        parts.append(neighborhood_curvature(centered, method, implicit_mode))
+        mask = None if neighbor_mask is None else neighbor_mask[s:s + tile]
+        parts.append(neighborhood_curvature(centered, method, implicit_mode,
+                                            mask))
     curv, normals, coeffs = zip(*parts)
     return (Curvatures(*(torch.cat(c) for c in zip(*curv))),
             torch.cat(normals), torch.cat(coeffs))

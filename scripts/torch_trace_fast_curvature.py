@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the port's main paths goes, on one NVIDIA card.
 
-Drives ``pct_tpu_torch.pipeline.fast_curvature(k)`` (``--path fast``)
-or the library kNN ``pct_tpu_torch.neighbors.knn_cloud_grid(k)``
-(``--path knn``) on the 1M-point torus (padded to 1<<16, as
-chip_smoke.py does), warms it up, then traces one call with
-``torch.profiler`` and prints:
+Drives ``pct_tpu_torch.pipeline.fast_curvature(k)`` (``--path fast``),
+the library kNN ``pct_tpu_torch.neighbors.knn_cloud_grid(k)``
+(``--path knn``) or the band kNN
+``pct_tpu_torch.experimental.knn_cellwise_band`` (``--path band``: grid,
+row blocks of 8 cells and the fitted band built once, as chip_smoke.py
+builds them) on the 1M-point torus (padded to 1<<16, as chip_smoke.py
+does), warms it up, then traces one call with ``torch.profiler`` and
+prints:
 
 - the card's name and power limit (nvidia-smi);
 - the call's wall time, the device's busy time (union of kernel
@@ -15,7 +18,8 @@ chip_smoke.py does), warms it up, then traces one call with
 chip_smoke.py prints the host-side stage times of the same call.
 
 Run from the root of a checkout:
-    python3 scripts/torch_trace_fast_curvature.py [--path fast|knn] [--k K]
+    python3 scripts/torch_trace_fast_curvature.py [--path fast|knn|band]
+        [--k K]
         [--trace-out PATH]
 ``--k`` is the neighbor count (default 20: the list engine; k >= 64
 runs the moments engine of ``fast_curvature``). ``--trace-out`` also
@@ -33,8 +37,9 @@ N_POINTS = 1_000_000
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("fast", "knn"), default="fast",
-                    help="fast_curvature (default) or knn_cloud_grid")
+    ap.add_argument("--path", choices=("fast", "knn", "band"),
+                    default="fast", help="fast_curvature (default), "
+                    "knn_cloud_grid or knn_cellwise_band")
     ap.add_argument("--k", type=int, default=20,
                     help="neighbors per point (default 20)")
     ap.add_argument("--trace-out", type=Path, default=None,
@@ -46,9 +51,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import card_label
+    from chip_smoke import card_label, fitted_band
     from pct_tpu_torch.core import from_numpy
-    from pct_tpu_torch.neighbors import knn_cloud_grid
+    from pct_tpu_torch.experimental import build_row_blocks, knn_cellwise_band
+    from pct_tpu_torch.neighbors import cellknn, knn_cloud_grid
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.pipeline import fast_curvature
     from pct_tpu_torch.shapes import generate_shape
 
@@ -56,7 +63,18 @@ def main():
     print(f"card: {label}", flush=True)
     pts, _ = generate_shape("torus", N_POINTS, radius=1.0)
     cloud = from_numpy(pts, pad_multiple=1 << 16, device="cuda")
-    path = fast_curvature if args.path == "fast" else knn_cloud_grid
+    path = {"fast": fast_curvature, "knn": knn_cloud_grid}.get(args.path)
+    if args.path == "band":
+        n = cloud.num_points
+        grid = build_grid(cloud.points, n,
+                          estimate_cell_size(cloud.points, n, args.k))
+        cells, cap, _, _ = cellknn.probe_grid(grid)
+        blocks = build_row_blocks(cells, 8)
+        band, _ = fitted_band(grid, cells, blocks, cap, 8)
+
+        def path(cloud, k):
+            return knn_cellwise_band(grid, cells, blocks, k, cap, band=band)
+        path.__name__ = f"knn_cellwise_band(band={band})"
     for _ in range(2):
         path(cloud, args.k)
     torch.cuda.synchronize()

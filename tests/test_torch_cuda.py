@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from pct_tpu_torch.experimental.band_select import (
+    band_select_plain,
+    knn_band_select,
+)
 from pct_tpu_torch.ops.moments import (
     knn_moments,
     moments_plain,
@@ -175,3 +179,69 @@ def test_moments_kernel_matches_plain(cuda, T, C, M, k, lattice, p_valid,
         assert not found.any() and (want[..., 37] > 0).any()
     if empty:
         assert (want[::2, :, 35] == 0).all() and (want[::2, :, :35] == 0).all()
+
+
+def _band_tile(seed, nb, bc, cap, band, lattice=False, sparse=False):
+    """Random band-select operands: overlapping bands, runs of random
+    offset and length (some empty), the last cell of every other block a
+    padding cell (no runs), each cell's first query slots on rows of its
+    centre run (self hits), edges at ±1e30 on some axes. ``lattice``
+    puts every point on a 1/4 lattice (exact distance ties); ``sparse``
+    cuts every run to at most one row (fewer than k candidates)."""
+    rng = np.random.default_rng(seed)
+    npad = nb * band // 2 + band
+    if lattice:
+        pl = (rng.integers(0, 8, (3, npad)) * 0.25).astype(np.float32)
+    else:
+        pl = rng.standard_normal((3, npad)).astype(np.float32)
+    bs = rng.integers(0, npad - band // 2, (nb, 9)).astype(np.int32)
+    rs_rel = rng.integers(0, band, (nb, bc, 9)).astype(np.int32)
+    run_len = rng.integers(0, band - rs_rel + 1).astype(np.int32)
+    run_len[rng.random((nb, bc, 9)) < 0.2] = 0
+    if sparse:
+        run_len = np.minimum(run_len, 1)
+    run_len[::2, -1] = 0
+    qbase = np.clip(bs[:, None, 4] + rs_rel[:, :, 4], 0, npad - 1)
+    qrow = np.minimum(qbase[..., None] + np.arange(cap), npad - 1)
+    qpts = pl.T[qrow.reshape(nb, bc * cap)].copy()
+    qpts[:, 1::3] += np.float32(0.125)
+    lo = (qpts.reshape(nb, bc, cap, 3).min(2) - 0.5).astype(np.float32)
+    hi = (qpts.reshape(nb, bc, cap, 3).max(2) + 0.5).astype(np.float32)
+    lo[:, ::3, 0] = -1e30
+    hi[:, 1::3, 2] = 1e30
+    return (pl[0], pl[1], pl[2], bs, rs_rel, run_len, qpts,
+            qbase.astype(np.int32), lo, hi)
+
+
+@pytest.mark.parametrize("nb,bc,cap,band,k,lattice,sparse", [
+    (16, 8, 4, 128, 1, False, False),      # k = 1, 32 query slots
+    (12, 8, 16, 128, 10, False, False),    # the CPU test's k
+    (10, 8, 32, 384, 20, False, False),    # the 1M torus's shape at k=20
+    (6, 4, 64, 1024, 64, False, False),    # 110,592 B of shared memory
+    (4, 8, 16, 1024, 100, False, False),   # the 128-entry list
+    (4, 2, 37, 256, 128, False, False),    # the largest k, Q % 32 != 0
+    (2, 8, 128, 1024, 20, False, False),   # 1024 query slots a block
+    (8, 8, 16, 256, 20, True, False),      # exact distance ties
+    (8, 8, 8, 128, 20, False, True),       # fewer than k candidates
+])
+def test_band_select_kernel_bit_identical(cuda, nb, bc, cap, band, k,
+                                          lattice, sparse):
+    ops = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+           for a in _band_tile(nb * cap + band + k, nb, bc, cap, band,
+                               lattice, sparse)]
+    before = knn_band_select.launches
+    d_k, r_k, c_k = knn_band_select(*ops, k=k, bc=bc, cap=cap, band=band)
+    torch.cuda.synchronize()
+    assert knn_band_select.launches == before + 1
+    d_p, r_p, c_p = band_select_plain(*ops, k, bc, cap, band)
+    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+    assert torch.equal(r_k, r_p)
+    assert torch.equal(c_k.view(torch.int32), c_p.view(torch.int32))
+    missing = d_k > 1e18
+    assert missing.any()                    # the padding cells at least
+    bs0 = ops[3][:, 0].repeat_interleave(bc * cap)[:, None].expand_as(r_k)
+    assert torch.equal(r_k[missing], bs0[missing])
+    if sparse:
+        assert missing[:, -1].all()
+    if lattice:
+        assert (d_k[:, 1:] == d_k[:, :-1])[~missing[:, 1:]].any()

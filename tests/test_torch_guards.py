@@ -15,6 +15,7 @@ from pct_tpu_torch.core import from_numpy, from_reference_arrays
 from pct_tpu_torch.neighbors import knn_cloud_grid
 from pct_tpu_torch.pipeline import (
     curvature_pipeline,
+    explicit_quadratic_neighbor_study,
     fast_curvature,
     fused_curvature,
 )
@@ -108,3 +109,38 @@ def test_later_slices_refuse(kwargs):
             assert res.exact[:64].all()
     for a in (*res.curv, res.normals, res.kth_dist):
         assert torch.isfinite(a).all()
+
+
+NEW_MODULES = ["pct_tpu_torch.experimental",
+               "pct_tpu_torch.experimental.band_select",
+               "pct_tpu_torch.experimental.band_knn",
+               "pct_tpu_torch.curvature.pca",
+               "pct_tpu_torch.pipeline.neighbor_study",
+               "pct_tpu_torch.utils.filters",
+               "pct_tpu_torch.utils.transforms"]
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_band_and_study_modules_import_no_jax(module):
+    """Each module of the band kNN, PCA and study slice names neither JAX
+    nor the JAX package among its imports."""
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert not [m for m in _imported_roots(path) if m in FORBIDDEN]
+
+
+def test_band_and_study_modules_leave_jax_unloaded():
+    code = (f"import sys; import {', '.join(NEW_MODULES)}; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'pct_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_neighbor_study_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        explicit_quadratic_neighbor_study(from_numpy(pts, device="cpu"))

@@ -17,16 +17,20 @@ without printing its result line:
 4. the moments engine, k=100, on the same cloud:
    a. the moments kernel against its plain version on every bucket of
       ``fast_curvature``'s own probe: columns 35–45 bit-identical, the
-      35 moment columns within count_le²·2⁻²⁴;
+      35 moment columns within count_le²·2⁻²⁴; beside each bucket, the
+      partial library yardstick (``torch.kthvalue`` of the prebuilt
+      masked d²: τ only) and the first design's time;
    b. the main path, ``fast_curvature(k=100)``, with the same checks;
    c. the virtual split on the card: ``fused_curvature(engine=
       "moments")`` with cells split to 64 queries a row against the
       unsplit layout;
 5. library kNN, the staged pipeline and the implicit method, same cloud:
    a. the rows and positions kernels against their plain versions on
-      every bucket of ``knn_cloud_grid(cloud, 20)``'s probe, bit for
-      bit, and rows = cand[pos]; the rows kernel at k=100 on every
-      bucket of the unsplit k=100 probe;
+      every bucket of ``knn_cloud_grid(cloud, 20)``'s probe and of the
+      unsplit k=100 probe, bit for bit, and rows = cand[pos]; beside
+      each bucket, the partial library yardstick (``torch.topk`` over
+      int64 (d² bits << 32 | m) keys of the prebuilt masked d², the same
+      winners in the same order) and the first design's time;
    b. ``knn_cloud_grid(cloud, 20)``: launches, exact 1.0 after the
       repair, kth distance against brute force;
    c. ``curvature_pipeline(cloud, 20)`` against ``fast_curvature`` on
@@ -72,6 +76,20 @@ TIMED_REPS = 5
 PLAIN_BUDGET_S = 60.0            # plain-version time for the k=100 rows check
 CUT_ROWS = 4096                  # cell rows a bucket keeps past that budget
 SELECT_COORDS_PR2_MS = (13.62, 13.80)   # PERF.md, four runs
+# The first designs' per-bucket ms on the same buckets of the 1M torus
+# (PERF.md's tables: the one-thread-per-query list and bisection kernels,
+# NVIDIA H100 80GB HBM3, 700 W).
+FIRST_DESIGN_MS = {
+    "select_rows k=20": (4.625, 6.468, 2.160, 0.234),
+    "select_pos k=20": (4.680, 6.435, 2.141, 0.245),
+    "select_rows k=100": (41.027, 69.422, 75.434, 106.951, 56.090, 41.825),
+    "moments": (3.564, 7.456, 6.986, 11.210, 5.639, 3.821),
+}
+FIRST_DESIGN_CALL_MS = {"select_rows k=20": (13.385, 13.487),
+                        "select_pos k=20": (13.222, 13.501),
+                        "select_rows k=100": (390.7, 391.2),
+                        "moments": (38.68, 38.99)}
+MISSING_D2 = 3.0e38
 BAND_BC = 8                      # cells a row block of the band kNN
 BAND_PLAIN_BUDGET_S = 30.0       # plain-version time for the band check
 BAND_CHUNK_BLOCKS = 512          # row blocks a plain-version call
@@ -134,6 +152,63 @@ def bucket_inputs(cellknn, grid, sp, args):
 
 def nbytes(*tensors):
     return sum(a.numel() * a.element_size() for a in tensors)
+
+
+def masked_d2(ops):
+    """The plain versions' masked (T,C,M) d² of one bucket's operands:
+    difference form, 3e38 where the slot is unusable (valid is 0 or 1
+    here, so the selects' valid != 0 and the moments' valid > 0 agree)."""
+    import torch
+
+    q, p, cand, qrow, valid = ops
+    d = [q[:, :, None, a] - p[:, None, :, a] for a in range(3)]
+    d2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    del d
+    ok = (valid[:, None, :] > 0) & (cand[:, None, :] != qrow[:, :, None])
+    return torch.where(ok, d2, MISSING_D2)
+
+
+def topk_yardstick(ops, k, d_k, pos_k):
+    """The rows/positions kernels' partial library yardstick: one
+    ``torch.topk`` over int64 keys (d² bits << 32 | m) of the prebuilt
+    masked d², which returns the same winners in the same order. Checks
+    that against the positions kernel's output on found slots; returns
+    the call's median ms."""
+    import torch
+
+    d2 = masked_d2(ops)
+    M = d2.shape[-1]
+    key = d2.view(torch.int32).to(torch.int64)
+    del d2
+    key.bitwise_left_shift_(32).bitwise_or_(
+        torch.arange(M, dtype=torch.int64, device=key.device))
+    top = torch.topk(key, k, dim=-1, largest=False).values
+    found = d_k < 1e18
+    check(bool(((top & 0xFFFFFFFF) == pos_k)[found].all()),
+          "torch.topk yardstick: the kernel's winners in the same order")
+    ms = event_ms(lambda: torch.topk(key, k, dim=-1, largest=False), 3)
+    del key, top
+    return ms
+
+
+def kthvalue_yardstick(ops, k, got):
+    """The moments kernel's partial library yardstick: one
+    ``torch.kthvalue`` of the prebuilt masked d² (τ only). Checks τ
+    against the kernel's column 35 where at least k slots are usable;
+    returns the call's median ms."""
+    import torch
+
+    d2 = masked_d2(ops)
+    if d2.shape[-1] < k:
+        return None
+    tau = torch.kthvalue(d2, k, dim=-1).values
+    full = ((d2 < MISSING_D2).sum(-1) >= k)
+    check(bool((tau.view(torch.int32) == got[..., 35].contiguous()
+                .view(torch.int32))[full].all()),
+          "torch.kthvalue yardstick: the kernel's tau")
+    ms = event_ms(lambda: torch.kthvalue(d2, k, dim=-1), 3)
+    del d2, tau
+    return ms
 
 
 def select_vs_plain(cellknn, grid, cells, spec, k):
@@ -202,13 +277,14 @@ def moments_vs_plain(cellknn, grid, cells, spec, k):
         # at tau when the tie weight is positive
         lt, le = want[..., 36], want[..., 37]
         members = int(torch.where(lt < k, le, lt)[ok_q].sum())
+        lib_ms = kthvalue_yardstick(ops, k, got)
         nb = nbytes(*ops, got)
         b_ms, b_by = bound(pairs, PAIR_FLOPS, MEMBER_FLOPS * members, nb)
         per_bucket.append(dict(
             bucket=b, cells=int((args[0] != cellknn.PAD_ID).sum()),
             capacity=sp.capacity, M=ops[1].shape[1], pairs=pairs,
             members=members, bytes=nb, bound_ms=b_ms, bound_by=b_by,
-            ratio=ratio,
+            ratio=ratio, library_ms=lib_ms,
             ms=event_ms(lambda ops=ops: knn_moments(*ops, k), TIMED_REPS),
             plain_ms=event_ms(lambda ops=ops: moments_plain(*ops, k), 3)))
         log(f"  moments bucket {b}: C {sp.capacity}, M {ops[1].shape[1]}, "
@@ -311,6 +387,8 @@ def ids_vs_plain(cellknn, grid, cells, spec, k, kernels, label):
     abs error."""
     import torch
 
+    from pct_tpu_torch.ops.select import knn_select
+
     per = {name: [] for name in kernels}
     rows = mismatched = 0
     max_err = 0.0
@@ -329,6 +407,9 @@ def ids_vs_plain(cellknn, grid, cells, spec, k, kernels, label):
                 f"{CUT_ROWS} cell rows only")
         pairs = int((count * tot).sum())
         outs = {}
+        d_pos, pos = knn_select(*ops, k)
+        lib_ms = topk_yardstick(ops, k, d_pos, pos)
+        del d_pos, pos
         for name, (kernel, plain) in kernels.items():
             d_k, w_k = kernel(*ops, k)
             torch.cuda.synchronize()
@@ -349,7 +430,7 @@ def ids_vs_plain(cellknn, grid, cells, spec, k, kernels, label):
                 bucket=b, cells=int((args[0] != cellknn.PAD_ID).sum()),
                 capacity=sp.capacity, M=ops[1].shape[1],
                 cell_rows=ops[0].shape[0], pairs=pairs, bytes=nb,
-                bound_ms=b_ms, bound_by=b_by,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 ms=event_ms(lambda ops=ops, f=kernel: f(*ops, k), 3),
                 plain_ms=event_ms(lambda ops=ops, f=plain: f(*ops, k), 1)))
             del d_k, d_p, w_p
@@ -432,14 +513,33 @@ def stage_times(label, cloud, k):
             f"loop {t_loop:.1f} ms")
 
 
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
 def log_buckets(label, name, per_bucket):
+    first = FIRST_DESIGN_MS.get(name)
     for r in per_bucket:
         extra = (f", {r['members']} members, error ratio {r['ratio']:.4g}"
                  if "members" in r else "")
+        old = first[r["bucket"]] if first else None
+        lib = (f", library yardstick (partial) {fmt_ms(r['library_ms'])}"
+               if "library_ms" in r else "")
         log(f"[{label}] {name} bucket {r['bucket']}: {r['cells']} cells, C "
             f"{r['capacity']}, M {r['M']}, {r['pairs']} pairs{extra}: kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), 1 launch/call")
+            f"{r['ms']:.3f} ms (first design {fmt_ms(old)}), plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}){lib}, 1 launch/call")
+    if name in FIRST_DESIGN_CALL_MS:
+        lo, hi = FIRST_DESIGN_CALL_MS[name]
+        log(f"[{label}] {name}: {sum(r['ms'] for r in per_bucket):.3f} "
+            f"ms/call over {len(per_bucket)} buckets; first design {lo}-{hi}"
+            f" ms/call (PERF.md)")
+
+
+def library_total(per_bucket):
+    libs = [r.get("library_ms") for r in per_bucket]
+    return None if None in libs else sum(libs)
 
 
 def kernel_row(name, source, replaces, launches, max_err, per_bucket,
@@ -459,7 +559,7 @@ def kernel_row(name, source, replaces, launches, max_err, per_bucket,
         "plain_ms": sum(r["plain_ms"] for r in per_bucket),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "library_ms": library_total(per_bucket),
     }
 
 
@@ -837,8 +937,9 @@ def main():
         f"{[tuple(s) for s in spec_knn100]}")
     rows100_buckets, rows100_err = ids_vs_plain(
         cellknn, grid, cellknn.compact_cells(grid, mc_knn100), spec_knn100,
-        K_MOM, {"select_rows": (knn_select_rows, select_rows_plain)},
-        f"rows k={K_MOM}")
+        K_MOM, {"select_rows": (knn_select_rows, select_rows_plain),
+                "select_pos": (knn_select, select_pos_plain)},
+        f"rows/pos k={K_MOM}")
     del grid
 
     knn20, walls_knn, launches_knn = drive(
@@ -875,7 +976,7 @@ def main():
         {**none, "select_coords": len(spec20)})
     imp20_err = implicit_accuracy(imp20, cloud, pts, K_LIST, 7e-3, 1.25e-2)
     del imp20
-    imp100, walls_imp100, _ = drive(
+    imp100, walls_imp100, launches_imp100 = drive(
         lambda: fast_curvature(cloud, K_MOM, method="implicit"),
         f"implicit k={K_MOM}", counters,
         {**none, "select_rows": len(spec_knn100)}, warm=2)
@@ -906,6 +1007,7 @@ def main():
     log_buckets(label, f"select_rows k={K_LIST}", ids_buckets["select_rows"])
     log_buckets(label, f"select_pos k={K_LIST}", ids_buckets["select_pos"])
     log_buckets(label, f"select_rows k={K_MOM}", rows100_buckets["select_rows"])
+    log_buckets(label, f"select_pos k={K_MOM}", rows100_buckets["select_pos"])
     rows = [
         kernel_row("select_coords", "pct_tpu_torch/csrc/select_coords.cu",
                    "pct_tpu/ops/pallas_select.py:88",
@@ -928,13 +1030,30 @@ def main():
                    band_row["launches"], band_row["max_err"], [band_row]),
     ]
     rows[1]["max_err_ratio"] = mom_ratio
+    # k=100: the rows kernel on the implicit k=100 path (knn_cloud_grid's
+    # k=100 buckets), the positions kernel on the same operands
+    for r, name, launches in ((rows[2], "select_rows",
+                               launches_imp100["select_rows"]),
+                              (rows[3], "select_pos", 0)):
+        r["k100"] = kernel_row(name, r["source"], r["replaces"], launches,
+                               rows100_err, rows100_buckets[name])
+    rows[1]["library_call"] = ("torch.kthvalue of the prebuilt masked d2 "
+                               "(partial: tau only)")
+    for r in rows[2:4]:
+        r["library_call"] = ("torch.topk over int64 (d2 bits << 32 | m) "
+                             "keys of the prebuilt masked d2 (partial: no "
+                             "d2, no missing-slot rule)")
     for key in ("blocks_checked", "rows_checked", "default_band_ms"):
         rows[4][key] = band_row[key]
-    for r in rows:
-        log(f"[{label}] {r['name']} kernel: {r['ms']:.3f} ms/call "
-            f"({r['launches'] // 4} launches/call), plain "
+    # calls per driven path: 1 cold + 3 warm, the implicit k=100 path 1 + 2
+    for r, calls, k in [(r, 4, "") for r in rows] + [
+            (rows[2]["k100"], 3, " k=100"), (rows[3]["k100"], 3, " k=100")]:
+        lib = ("" if r["library_ms"] is None else
+               f", library yardstick (partial) {r['library_ms']:.3f} ms")
+        log(f"[{label}] {r['name']}{k} kernel: {r['ms']:.3f} ms/call "
+            f"({r['launches'] // calls} launches/call), plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}){lib}")
     lo, hi = SELECT_COORDS_PR2_MS
     log(f"[{label}] select_coords k={K_LIST}: {rows[0]['ms']:.3f} ms against "
         f"{lo}-{hi} ms before the list limit rose to 128; within 10%: "

@@ -1,0 +1,220 @@
+// Warp-per-query k-nearest machinery shared by select_rows.cu and
+// moments.cu, for sm_90a (H100).
+//
+// Layout. One thread block per cell row t, W = min(MAX_WARPS, C) warps;
+// warp w serves the row's query slots c = w, w + W, ... in turn. Where
+// the row fits the shared-memory budget (CACHE_BUDGET, M up to ~1,800
+// slots at 8 warps) the block stages its candidates once (x, y, z, id,
+// valid: 20 B a slot, coalesced) and each warp computes every d2 of its
+// query exactly once into a per-warp slice of M uint32 bits; each later
+// pass reads the bits back. Past the budget the same code runs on a
+// streamed source that recomputes d2 from device memory in every pass:
+// correct and slower, for rows no real bucket has.
+//
+// d2 is the difference form ((dx*dx + dy*dy) + dz*dz) with the _rn
+// intrinsics, so nvcc cannot contract it into FMAs; non-negative float32
+// values order as their uint32 bits do, so every select below runs on
+// the bits.
+//
+// kth smallest: a radix select over the bits, four 8-bit digit passes
+// from the top, each a per-warp 256-bin shared histogram (one shared
+// atomicAdd a slot whose bits match the digits found so far) and a warp
+// prefix scan that finds the digit holding the kth value. It returns the
+// value and, exactly, how many values lie below it and how many equal it.
+// (Combining equal digits first with __match_any_sync was measured
+// slower on the H100.)
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace knn_warp {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr float SENT = 3.0e38f;          // d2 of an unusable slot
+constexpr int MAX_WARPS = 8;
+constexpr int SCRATCH = 1024;            // bytes of per-warp scratch
+constexpr size_t CACHE_BUDGET = 100 * 1024;  // dynamic shared bytes
+
+__device__ __forceinline__ unsigned sent_bits() { return __float_as_uint(SENT); }
+
+__device__ __forceinline__ unsigned d2_bits(float qx, float qy, float qz,
+                                            float px, float py, float pz) {
+  const float dx = __fsub_rn(qx, px);
+  const float dy = __fsub_rn(qy, py);
+  const float dz = __fsub_rn(qz, pz);
+  return __float_as_uint(__fadd_rn(
+      __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)));
+}
+
+// The M candidate slots of one cell row, staged in shared memory (SoA,
+// pitch mp) ...
+struct StagedRow {
+  const float* xyz;
+  const int* cand;
+  const int* valid;
+  int mp;
+  __device__ float x(int m) const { return xyz[m]; }
+  __device__ float y(int m) const { return xyz[mp + m]; }
+  __device__ float z(int m) const { return xyz[2 * mp + m]; }
+  __device__ int id(int m) const { return cand[m]; }
+  __device__ int ok(int m) const { return valid[m]; }
+};
+
+// ... or read from device memory: p (M,3), cand (M,), valid (M,).
+struct GlobalRow {
+  const float* p;
+  const int* cand;
+  const int* valid;
+  __device__ float x(int m) const { return __ldg(p + 3 * (size_t)m); }
+  __device__ float y(int m) const { return __ldg(p + 3 * (size_t)m + 1); }
+  __device__ float z(int m) const { return __ldg(p + 3 * (size_t)m + 2); }
+  __device__ int id(int m) const { return __ldg(cand + m); }
+  __device__ int ok(int m) const { return __ldg(valid + m); }
+};
+
+// Bits of slot m for one query: Rule::bits(valid, cand, qrow, d2 bits)
+// masks the unusable slots to sent_bits().
+template <class Rule, class Row>
+struct RowBits {
+  Row row;
+  float qx, qy, qz;
+  int qr;
+  __device__ unsigned operator()(int m) const {
+    return Rule::bits(row.ok(m), row.id(m), qr,
+                      d2_bits(qx, qy, qz, row.x(m), row.y(m), row.z(m)));
+  }
+};
+
+struct CachedBits {
+  const unsigned* b;
+  __device__ unsigned operator()(int m) const { return b[m]; }
+};
+
+// Per-block shared memory: W scratch areas, then (cached) W bit slices
+// of mp words and the staged row.
+__host__ __device__ inline int pitch(int M) { return (M + 3) & ~3; }
+
+inline size_t smem_bytes(int W, int M, bool cached) {
+  const size_t mp = static_cast<size_t>(pitch(M));
+  return static_cast<size_t>(W) * SCRATCH +
+         (cached ? static_cast<size_t>(W) * mp * 4 + mp * 20 : 0);
+}
+
+inline bool use_cache(int W, int M) {
+  return M <= (1 << 20) && smem_bytes(W, M, true) <= CACHE_BUDGET;
+}
+
+struct Block {
+  unsigned char* scratch;   // this warp's SCRATCH bytes
+  unsigned* bits;           // this warp's bit slice (cached)
+  StagedRow row;            // the staged row (cached)
+};
+
+// Carve the block's shared memory; with `cached`, stage row t's slots
+// (all threads, coalesced) and synchronize the block.
+__device__ inline Block carve(unsigned char* smem, bool cached, int W,
+                              int warp, const float* pt, const int* ct,
+                              const int* vt, int M) {
+  Block b;
+  b.scratch = smem + warp * SCRATCH;
+  b.bits = nullptr;
+  b.row = StagedRow{nullptr, nullptr, nullptr, 0};
+  if (!cached) return b;
+  const int mp = pitch(M);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + W * SCRATCH);
+  float* xyz = reinterpret_cast<float*>(bits + W * mp);
+  int* cand = reinterpret_cast<int*>(xyz + 3 * mp);
+  int* valid = cand + mp;
+  for (int i = threadIdx.x; i < 3 * M; i += blockDim.x) {
+    const int m = i / 3;
+    xyz[(i - 3 * m) * mp + m] = pt[i];
+  }
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    cand[i] = ct[i];
+    valid[i] = vt[i];
+  }
+  __syncthreads();
+  b.bits = bits + warp * mp;
+  b.row = StagedRow{xyz, cand, valid, mp};
+  return b;
+}
+
+// Fill this warp's bit slice for one query (cached layout).
+template <class Rule>
+__device__ inline void fill_bits(unsigned* bits, const StagedRow& row,
+                                 float qx, float qy, float qz, int qr, int M,
+                                 int lane) {
+  const RowBits<Rule, StagedRow> src{row, qx, qy, qz, qr};
+  for (int m = lane; m < M; m += 32) bits[m] = src(m);
+  __syncwarp();
+}
+
+// The kk-th smallest (1 <= kk <= M) of src(m) over m < M, every lane of
+// the warp together; *below gets how many values are strictly smaller,
+// *equal how many equal it. `hist` is 256 words of the warp's scratch.
+template <class Src>
+__device__ unsigned radix_kth(const Src& src, int M, int kk, unsigned* hist,
+                              int lane, int* below, int* equal) {
+  unsigned prefix = 0, known = 0;
+  int under = 0;
+#pragma unroll 1
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) hist[j * 32 + lane] = 0;  // bin 8*lane + j
+    __syncwarp();
+    for (int m = lane; m < M; m += 32) {
+      const unsigned v = src(m);
+      if ((v & known) == prefix) {
+        const unsigned d = (v >> shift) & 255u;
+        atomicAdd(&hist[((d & 7u) << 5) | (d >> 3)], 1u);
+      }
+    }
+    __syncwarp();
+    unsigned c[8], own = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = hist[j * 32 + lane];
+      own += c[j];
+    }
+    unsigned incl = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned t = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const unsigned excl = incl - own;
+    const unsigned want = static_cast<unsigned>(kk);
+    const bool here = excl < want && want <= incl;
+    int dj = 0;
+    unsigned lower = excl, acc = excl, in_bin = 0;
+    bool seen = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!seen && acc + c[j] >= want) {
+        seen = true;
+        dj = j;
+        lower = acc;
+        in_bin = c[j];
+      }
+      acc += c[j];
+    }
+    const int from = __ffs(__ballot_sync(FULL, here)) - 1;
+    const unsigned digit =
+        static_cast<unsigned>(8 * from + __shfl_sync(FULL, dj, from));
+    const int lo = static_cast<int>(__shfl_sync(FULL, lower, from));
+    *equal = static_cast<int>(__shfl_sync(FULL, in_bin, from));
+    prefix |= digit << shift;
+    known |= 255u << shift;
+    kk -= lo;
+    under += lo;
+  }
+  __syncwarp();
+  *below = under;
+  return prefix;
+}
+
+}  // namespace knn_warp

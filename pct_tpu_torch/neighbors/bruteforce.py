@@ -17,6 +17,23 @@ def _pairwise_sqdist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(qq + pp - 2.0 * (q @ p.T), 0.0)
 
 
+def smallest_k(d2: torch.Tensor, k: int):
+    """The k smallest entries of each row of ``d2`` (float32, every entry
+    >= 0 or +inf) in ``lax.top_k``'s order: ascending, the lower column
+    first among equal values (±0 equal). ``torch.topk`` keeps no tie
+    order, so it runs on unique int64 keys (d² bits << 32 | column):
+    non-negative float32 values order as their bits do, and ``+ 0.0``
+    turns a −0 (which ``clamp_min`` can leave) into +0 first. Returns
+    (values (..., k) float32, exactly the selected d², and columns
+    (..., k) int64)."""
+    key = (d2 + 0.0).view(torch.int32).to(torch.int64)
+    key.bitwise_left_shift_(32).bitwise_or_(
+        torch.arange(d2.shape[-1], dtype=torch.int64, device=d2.device))
+    top = torch.topk(key, k, dim=-1, largest=False).values
+    vals = (top >> 32).to(torch.int32).view(torch.float32)
+    return vals, top & 0xFFFFFFFF
+
+
 def knn_bruteforce(points: torch.Tensor, num_points: int, k: int,
                    queries: torch.Tensor | None = None,
                    query_indices: torch.Tensor | None = None,
@@ -26,8 +43,9 @@ def knn_bruteforce(points: torch.Tensor, num_points: int, k: int,
     candidates). With ``exclude_self`` the query's own row
     (``query_indices``, default arange when ``queries`` is None) is
     removed: the reference's "query k+1, drop self". Slots beyond the
-    valid candidates carry inf distances. Returns (indices (Q,k) int32,
-    dists (Q,k) float32 ascending)."""
+    valid candidates carry inf distances. Equal distances keep the lower
+    row first, as ``lax.top_k`` does (``smallest_k``). Returns (indices
+    (Q,k) int32, dists (Q,k) float32 ascending)."""
     n = points.shape[0]
     dev = points.device
     if queries is None:
@@ -45,10 +63,9 @@ def knn_bruteforce(points: torch.Tensor, num_points: int, k: int,
         ok = valid[None, :]
         if exclude_self:
             ok = ok & (ar[None, :] != query_indices[s:s + tile, None])
-        d2 = torch.where(ok, d2, torch.inf)
-        neg, idx = torch.topk(-d2, k, dim=1)
+        d2, idx = smallest_k(torch.where(ok, d2, torch.inf), k)
         idx_out.append(idx.to(torch.int32))
-        d_out.append(torch.sqrt(torch.clamp_min(-neg, 0.0)))
+        d_out.append(torch.sqrt(d2))
     if not idx_out:
         return (torch.empty((0, k), dtype=torch.int32, device=dev),
                 torch.empty((0, k), device=dev))
@@ -83,7 +100,14 @@ def mean_nn_distance(points: torch.Tensor, num_points: int,
                      sample: int = 1024, chunk: int = 16384) -> torch.Tensor:
     """() float32 mean nearest-neighbor distance over a deterministic
     stride sample of ``sample`` valid rows; a running-min fold over point
-    chunks, so the (sample × N) distance matrix never materializes."""
+    chunks, so the (sample × N) distance matrix never materializes.
+
+    Not bit-equal to the JAX package's: both take the expanded form
+    |q|² + |p|² − 2q·p, whose cross term is a matmul that PyTorch (BLAS,
+    cuBLAS) and XLA round differently. At 1-NN separations the form
+    cancels (|q|² + |p|² ≈ 2q·p), so an ulp of |q|² becomes many ulps of
+    d̄ (843 on a 200k torus). tests/test_torch_grid.py bounds the
+    relative gap by 1e-4."""
     best, valid_s = _sampled_nn_fold(points, num_points, sample, chunk)
     best = torch.where(valid_s, best, 0.0)
     return torch.sum(best) / max(min(sample, num_points), 1)

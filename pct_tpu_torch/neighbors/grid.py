@@ -121,6 +121,18 @@ def estimate_cell_size(points: torch.Tensor, num_points: int, k: int,
                        sample: int = 512) -> torch.Tensor:
     """() float32 cell edge 1.35·d̄·√k, so that the k nearest neighbors of
     a surface-sampled point fall inside the 3×3×3 cell window (d̄ the
-    sampled mean 1-NN spacing; see the JAX package for the derivation)."""
+    sampled mean 1-NN spacing; see the JAX package for the derivation).
+
+    On the same cloud this is not the JAX package's cell size bit for
+    bit: d̄ comes from expanded-form distances whose matmul rounds
+    differently in PyTorch and XLA, and the form cancels at 1-NN
+    separations (``mean_nn_distance``). The gap stays below 1e-4
+    relative (hundreds of ulps on a 200k torus, tens on a 100k sphere),
+    but it is a different grid: buckets, which rows certify and the tie
+    order of the selects can differ from the JAX package's, while the
+    certified winner sets and the exact fraction agree (both held by
+    tests/test_torch_grid.py). The formula is kept as the port's own;
+    parity tests that need the JAX grid adopt its cell size
+    (``core.cloud.from_reference_arrays``)."""
     dbar = mean_nn_distance(points, num_points, sample=sample, chunk=65536)
     return 1.35 * dbar * torch.sqrt(torch.tensor(float(k), device=dbar.device))

@@ -11,8 +11,10 @@ and no scanned cell overflowed.
 
 ``knn_grid`` (the query-centric path, also behind ``ball_grid``) gathers
 up to ``capacity`` candidates from each of the (2·rings+1)³ cells around
-the query's cell and takes a ``torch.topk``, as the JAX package takes
-``lax.top_k`` outside any kernel.
+the query's cell and takes the k smallest outside any kernel, as the JAX
+package takes ``lax.top_k``, in its order: ascending distance, the lower
+candidate column first on equal distances (``bruteforce.smallest_k``;
+``torch.topk`` alone keeps no tie order).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from pct_tpu_torch.core.device import resolve_device
-from pct_tpu_torch.neighbors.bruteforce import knn_bruteforce
+from pct_tpu_torch.neighbors.bruteforce import knn_bruteforce, smallest_k
 from pct_tpu_torch.neighbors.grid import (
     PAD_ID,
     GridIndex,
@@ -94,10 +96,9 @@ def _knn_grid_parts(grid: GridIndex, queries: torch.Tensor, k: int,
         orig = grid.order[cand]
         if exclude_self:
             ok = ok & (orig != qidx[:, None])
-        d2 = torch.where(ok, d2, torch.inf)
-        neg, pos = torch.topk(-d2, k, dim=1)
-        dists = torch.sqrt(torch.clamp_min(-neg, 0.0))
-        found = torch.isfinite(neg)
+        d2, pos = smallest_k(torch.where(ok, d2, torch.inf), k)
+        dists = torch.sqrt(d2)
+        found = torch.isfinite(d2)
         exact = found[:, k - 1] & (dists[:, k - 1] <= cover) & ~overflow
         parts.append((torch.gather(orig, 1, pos), dists, found, exact, cover,
                       overflow))

@@ -3,9 +3,10 @@
 Each source compiles on its own into a shared library with a plain C
 interface, loaded with ``ctypes``. Builds happen at first use, from the
 sources in the package only, into ``_build/`` beside them (git-ignored).
-A library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and never loaded stale. A missing ``nvcc`` or a
-failed build raises.
+A library's file name carries a hash of its source, of every shared
+header (``csrc/*.cuh``) and of the flags, so an edited source or header
+is rebuilt and never loaded stale. A missing ``nvcc`` or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -39,9 +40,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<name>.cu`` lives: keyed on the
+    source, every ``csrc/*.cuh`` header (any of them may be included) and
+    the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -8,9 +8,9 @@ are skipped):
 
 1. d² in the exact difference form ((dx·dx + dy·dy) + dz·dz), d = q − p;
 2. τ, the kth smallest valid d² when at least k valid candidates exist,
-   else the largest valid d², else 0 (the kernel finds it by bisection
-   on the int32 bits of d²: non-negative float32 compares are monotone
-   on their bits);
+   else the largest valid d², else 0 (the kernel finds it by a radix
+   select on the uint32 bits of d²: non-negative float32 compares are
+   monotone on their bits);
 3. count_lt = #(d² < τ), count_le = #(d² ≤ τ), found = count_le ≥ k,
    and the first slots whose d² equals the minimum and τ;
 4. weights w = 1 below τ, w_tie = clip((k − count_lt)/count_eq, 0, 1)
@@ -29,9 +29,10 @@ On CUDA tensors the hand-written kernel ``csrc/moments.cu`` runs (built
 with nvcc at first use); on CPU tensors the plain PyTorch version below.
 Both round every operation the same way, so columns 35–47 agree bit for
 bit on the card and every monomial is the same float; only the order of
-the 35 sums differs (the kernel adds in slot order), which keeps each
-moment column within count_le² · 2⁻²⁴ of the other (|monomial| ≤ 1 for
-every member).
+the 35 sums differs (in the kernel each of a warp's 32 lanes adds its
+own members, then the lanes' partial sums are added in a butterfly),
+which keeps each moment column within count_le² · 2⁻²⁴ of the other
+(|monomial| ≤ 1 for every member).
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ from pct_tpu_torch.ops import build
 
 NOUT = 48
 MISSING_D2 = 3.0e38       # d² of a skipped slot
-MAX_QUERIES = 512         # one thread per query slot, one block per cell row
+MAX_QUERIES = 512         # query slots of a cell row (one block a row, its
+                          # warps take the slots in turn)
 # (rows × C × M) elements per plain-version chunk: cache-sized on the
 # CPU (2.7× faster than 2^23 there), large on the card, where each chunk
 # costs ~130 kernel launches

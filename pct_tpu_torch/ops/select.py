@@ -16,13 +16,15 @@ The three wrappers differ only in what they emit beside the distances:
 
 Missing slots carry distance sqrt(3e38) and position 0 (so the
 coordinates of candidate slot 0, and the id ``cand[t, 0]``); callers
-test ``found = dists < 1e18``. The lists hold at most ``KMAX`` = 128
+test ``found = dists < 1e18``. The selects keep at most ``KMAX`` = 128
 neighbors; the JAX package's list engine runs only where k·cand_cap ≤
 48,000, so k > 128 reaches a select only on a degenerate cloud whose
 27-cell windows hold fewer than ~3·k points (n < k, for example).
 
-On CUDA tensors the hand-written kernels run (``csrc/select_coords.cu``,
-``csrc/select_rows.cu``, built with nvcc at first use); on CPU tensors
+On CUDA tensors the hand-written kernels run (``csrc/select_coords.cu``:
+one thread and one sorted list per query slot; ``csrc/select_rows.cu``:
+one warp per query slot, d² once, a radix select of the kth and a warp
+sort of the winners; built with nvcc at first use); on CPU tensors
 the plain PyTorch versions below, which do the same IEEE float32
 operations in the same order, so the two agree bit for bit on the card.
 """
@@ -37,8 +39,9 @@ import torch
 from pct_tpu_torch.ops import build
 
 MISSING_D2 = 3.0e38
-KMAX = 128          # per-thread top-k list length in the kernels
-MAX_QUERIES = 1024  # one thread per query slot, one block per cell row
+KMAX = 128          # coords: the list length; rows/pos: the keys a warp sorts
+MAX_QUERIES = 1024  # query slots of a cell row (one block a row; coords: a
+                    # thread a slot, rows/pos: warps take slots in turn)
 _PLAIN_PAIRS = 1 << 24   # (rows × C × M) elements per plain-version chunk
 
 

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from pct_tpu_torch.neighbors import ball_grid, knn_bruteforce, knn_grid
+from pct_tpu_torch.neighbors.grid import build_grid
 from pct_tpu_torch.experimental.band_select import (
     band_select_plain,
     knn_band_select,
@@ -77,13 +79,19 @@ def test_select_coords_kernel_bit_identical(cuda, T, C, M, k, dup, sparse):
         assert (d_k > 1e18).any()
 
 
-def _ids_tile(seed, T, C, M, dup=False, empty=False):
+def _ids_tile(seed, T, C, M, dup=False, empty=False, lattice=False,
+              p_valid=0.9):
     """Random tile with distinct candidate ids; the first min(C, M) query
     slots are candidates themselves (self hits); ``dup`` makes every
     point appear twice (exact ties between distinct ids); ``empty`` makes
-    every other row's candidates all invalid."""
+    every other row's candidates all invalid; ``lattice`` puts every
+    point on a 1/4 lattice (exact d², ties at every distance); a slot is
+    valid with probability ``p_valid``."""
     rng = np.random.default_rng(seed)
-    p = rng.standard_normal((T, M, 3)).astype(np.float32)
+    if lattice:
+        p = (rng.integers(0, 8, (T, M, 3)) * 0.25).astype(np.float32)
+    else:
+        p = rng.standard_normal((T, M, 3)).astype(np.float32)
     if dup:
         p[:, 1::2] = p[:, 0::2][:, :M // 2]
     q = rng.standard_normal((T, C, 3)).astype(np.float32)
@@ -92,7 +100,9 @@ def _ids_tile(seed, T, C, M, dup=False, empty=False):
     qrow = rng.integers(10 * M, 20 * M, (T, C)).astype(np.int32)
     s = min(C, M)
     q[:, :s], qrow[:, :s] = p[:, :s], cand[:, :s]
-    valid = (rng.random((T, M)) < 0.9).astype(np.int32)
+    if lattice:
+        q = (np.round(q * 4) / 4).astype(np.float32)
+    valid = (rng.random((T, M)) < p_valid).astype(np.int32)
     if empty:
         valid[::2] = 0
     return q, p, cand, qrow, valid
@@ -128,6 +138,49 @@ def test_select_ids_kernels_bit_identical(cuda, want, T, C, M, k, dup,
             ops[2], 1, w_k.reshape(T, -1).long()).reshape(T, C, k))
     if empty or M < k:
         assert (d_k > 1e18).any()
+
+
+# the warp design's limits and paths: the streamed source (M past the
+# shared-memory cache), C = 1024, k = 128, lattice ties that straddle the
+# kth at k=100, rows with fewer than k usable slots, all-invalid rows, C = 1
+IDS_CASES = {
+    "streamed_M6000_k100": (2, 16, 6000, 100, {}),
+    "streamed_M6000_k128_lattice": (2, 40, 6000, 128, {"lattice": True}),
+    "C1024_k20": (2, 1024, 300, 20, {}),
+    "C1024_k100": (1, 1024, 1064, 100, {}),
+    "k128_M1064": (4, 64, 1064, 128, {}),
+    "lattice_k100": (8, 48, 1064, 100, {"lattice": True}),
+    "lattice_k20": (16, 16, 232, 20, {"lattice": True}),
+    "under_k_k100": (8, 32, 900, 100, {"p_valid": 0.05}),
+    "all_invalid_k100": (6, 24, 700, 100, {"empty": True}),
+    "C1_k100": (16, 1, 1064, 100, {}),
+}
+
+
+@pytest.mark.parametrize("want", ["rows", "pos"])
+@pytest.mark.parametrize("case", sorted(IDS_CASES))
+def test_select_ids_warp_design_cases(cuda, want, case):
+    T, C, M, k, kw = IDS_CASES[case]
+    ops = [torch.from_numpy(a).to(cuda)
+           for a in _ids_tile(T * C + M + k, T, C, M, **kw)]
+    kernel, plain = ((knn_select_rows, select_rows_plain) if want == "rows"
+                     else (knn_select, select_pos_plain))
+    before = kernel.launches
+    d_k, w_k = kernel(*ops, k)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    d_p, w_p = plain(*ops, k)
+    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+    assert torch.equal(w_k, w_p)
+    found = d_k < 1e18
+    if kw.get("lattice"):          # ties straddle the kth distance
+        kth = d_k[..., k - 1:k]
+        assert ((d_k[..., :-1] == kth) & found[..., :-1]).any()
+    if "p_valid" in kw or kw.get("empty"):
+        assert (~found[..., -1]).any()
+        cand0 = ops[2][:, :1, None].expand_as(w_k)
+        assert torch.equal(w_k[~found], (cand0 if want == "rows"
+                                         else torch.zeros_like(w_k))[~found])
 
 
 def _moment_tile(seed, T, C, M, lattice=False, p_valid=0.9, empty=False):
@@ -179,6 +232,80 @@ def test_moments_kernel_matches_plain(cuda, T, C, M, k, lattice, p_valid,
         assert not found.any() and (want[..., 37] > 0).any()
     if empty:
         assert (want[::2, :, 35] == 0).all() and (want[::2, :, :35] == 0).all()
+
+
+MOMENT_CASES = {
+    "streamed_M6000_k100": (2, 16, 6000, 100, {}),
+    "streamed_M6000_lattice": (2, 24, 6000, 100, {"lattice": True}),
+    "C512_k100": (2, 512, 700, 100, {}),
+    "k128_M1064": (4, 64, 1064, 128, {}),
+    "lattice_k100_M1064": (6, 48, 1064, 100, {"lattice": True}),
+    "under_k_k100": (8, 32, 900, 100, {"p_valid": 0.05}),
+    "all_invalid_k100": (6, 24, 700, 100, {"empty": True}),
+    "C1_lattice_k100": (16, 1, 1064, 100, {"lattice": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MOMENT_CASES))
+def test_moments_warp_design_cases(cuda, case):
+    """The warp design's limits and paths, as IDS_CASES for the selects:
+    columns 35–47 bit for bit, the sums within count_le²·2⁻²⁴."""
+    T, C, M, k, kw = MOMENT_CASES[case]
+    ops = [torch.from_numpy(a).to(cuda)
+           for a in _moment_tile(T * C + M + k, T, C, M, **kw)]
+    before = knn_moments.launches
+    got = knn_moments(*ops, k)
+    torch.cuda.synchronize()
+    assert knn_moments.launches == before + 1
+    want = moments_plain(*ops, k)
+    differing, ratio, _ = stats_agreement(got, want)
+    assert differing == 0 and ratio <= 1.0, (differing, ratio)
+    found = want[..., 45] > 0
+    if kw.get("lattice"):
+        assert (found & (want[..., 37] - want[..., 36] > 1)).any()
+    if "p_valid" in kw:
+        assert not found.any() and (want[..., 37] > 0).any()
+    if kw.get("empty"):
+        assert (want[::2, :, :36] == 0).all()
+
+
+def tied_lattice():
+    """A 12×12×2 integer lattice plus two far outliers, shuffled, and 4
+    padding rows: (padded (N,3) float32, valid count n). Every distance
+    is an exact small integer in the difference and the expanded form,
+    so every backend sees the same d² and ties abound (6 neighbors at 1,
+    12 at √2, ...); the outliers' windows hold fewer than k points, so
+    their lists end in masked inf slots. tests/test_torch_knn.py holds
+    the port to the JAX package on it."""
+    g = np.stack(np.meshgrid(np.arange(12), np.arange(12), np.arange(2),
+                             indexing="ij"), -1).reshape(-1, 3)
+    pts = np.concatenate([g, [[40, 40, 40], [40, 40, 42]]])
+    pts = pts[np.random.default_rng(0).permutation(len(pts))]
+    return (np.concatenate([pts, np.zeros((4, 3))]).astype(np.float32),
+            len(pts))
+
+
+@pytest.mark.parametrize("case", ["knn_grid", "ball_grid", "knn_bruteforce"])
+def test_tie_order_same_on_card(cuda, case):
+    """The stable top-k (lower column first on equal d²) gives the card
+    the CPU's indices in order on the tied lattice."""
+    pts, n = tied_lattice()
+    out = []
+    for dev in ("cpu", cuda):
+        p = torch.from_numpy(pts).to(dev)
+        if case == "knn_bruteforce":
+            out.append(knn_bruteforce(p, n, n + 2))
+            continue
+        g = build_grid(p, n, torch.tensor(np.float32(2.0), device=dev))
+        q, qi = g.sorted_points[:n], g.order[:n]
+        out.append(knn_grid(g, q, 10, query_indices=qi, capacity=9)
+                   if case == "knn_grid"
+                   else ball_grid(g, q, 1.5, 24, capacity=16))
+    (i_c, d_c), (i_g, d_g) = (r[:2] for r in out)
+    assert torch.equal(i_g.cpu(), i_c)
+    # the same d² on both; PyTorch's float32 square root on the CPU can be
+    # 1 ulp from the correctly rounded one the card gives (sqrt(4285))
+    torch.testing.assert_close(d_g.cpu(), d_c, rtol=2.4e-7, atol=0)
 
 
 def _band_tile(seed, nb, bc, cap, band, lattice=False, sparse=False):

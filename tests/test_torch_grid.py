@@ -1,5 +1,7 @@
 """Grid, cell table, candidate runs and bucket probe: the port against
-the JAX package on the same cloud and the same cell size."""
+the JAX package on the same cloud and the same cell size; and the bound
+on the packages' own cell sizes, which differ in their last bits
+(``estimate_cell_size``'s docstring)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,11 +10,13 @@ import torch
 
 import pct_tpu.neighbors.cellknn as jck
 from pct_tpu.core import from_numpy as jax_from_numpy
+from pct_tpu.neighbors import knn_cloud_grid as jax_knn_cloud_grid
 from pct_tpu.neighbors.grid import build_grid as jax_build_grid
 from pct_tpu.neighbors.grid import estimate_cell_size as jax_cell_size
 from pct_tpu.shapes import generate_shape as jax_generate_shape
 import pct_tpu_torch.neighbors.cellknn as tck
 from pct_tpu_torch.core import from_numpy
+from pct_tpu_torch.neighbors import knn_cloud_grid
 from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
 from pct_tpu_torch.shapes import generate_shape
 
@@ -138,3 +142,38 @@ def test_port_generators_match_reference():
                                    perturbation_strength=strength, seed=3)
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("name,n", [("torus", 200_000), ("sphere", 100_000)])
+def test_own_cell_size_within_1e4_of_jax(name, n):
+    """Each package's own cell size on the same cloud, at k=20 and
+    k=100: relative gap <= 1e-4 (measured 5.6e-5 on the torus, 3.9e-6
+    on the sphere; both take d̄ from expanded-form distances whose
+    matmul rounds differently)."""
+    pts = generate_shape(name, n)[0]
+    cj, ct = jax_from_numpy(pts), from_numpy(pts, device="cpu")
+    for k in (20, 100):
+        want = float(jax_cell_size(cj.points, cj.num_points, k))
+        got = float(estimate_cell_size(ct.points, ct.num_points, k))
+        assert abs(got - want) / want <= 1e-4, (k, got, want)
+
+
+@pytest.mark.parametrize("cloud,k", [("torus_blob", 20), ("torus", 12)])
+def test_own_cell_size_exact_fraction_matches_jax(cloud, k):
+    """``knn_cloud_grid`` without the repair, each package on its own cell
+    size: the certified fractions agree within 1e-3 (4 rows of the 4000
+    of the torus + blob cloud, whose overfull blob cells stay
+    uncertified; 10 of the 10k torus). A grid a few ulps wider or
+    narrower can move only certificates whose kth distance sits on a
+    window edge; measured: equal."""
+    from tests.test_torch_knn import _torus_blob
+    pts = (_torus_blob() if cloud == "torus_blob"
+           else generate_shape("torus", 10_000)[0])
+    n = len(pts)
+    rj, _ = jax_knn_cloud_grid(jax_from_numpy(pts), k, exact_fallback=False)
+    rt, _ = knn_cloud_grid(from_numpy(pts, device="cpu"), k,
+                           exact_fallback=False, device="cpu")
+    frac_j = float(np.asarray(rj.exact)[:n].mean())
+    frac_t = float(rt.exact[:n].float().mean())
+    assert abs(frac_t - frac_j) <= 1e-3, (frac_t, frac_j)
+    assert frac_t > 0.9

@@ -144,3 +144,26 @@ def test_neighbor_study_defaults_to_cuda(monkeypatch):
     pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
     with pytest.raises(RuntimeError, match="cuda"):
         explicit_quadratic_neighbor_study(from_numpy(pts, device="cpu"))
+
+
+def test_build_cache_keys_on_shared_headers(tmp_path, monkeypatch):
+    """A library's path changes when any ``csrc/*.cuh`` changes, so an
+    edited shared header never loads a stale library; another source's
+    bytes leave it alone. No nvcc needed: only the key is computed."""
+    import shutil
+
+    from pct_tpu_torch.ops import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    first = build.library_path("select_rows")
+    assert build.library_path("select_rows") == first
+    (csrc / "extra.cuh").write_text("// a new shared header\n")
+    second = build.library_path("select_rows")
+    assert second != first
+    (csrc / "extra.cuh").write_text("// the same header, edited\n")
+    third = build.library_path("select_rows")
+    assert third not in (first, second)
+    (csrc / "band_select.cu").write_text("// another source\n")
+    assert build.library_path("select_rows") == third

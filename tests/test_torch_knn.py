@@ -15,6 +15,11 @@
     tied with the next.
 (d) ``knn_grid`` and ``ball_grid`` against the JAX ones.
 (e) The list limit: k = 128 runs, k = 129 raises.
+(f) ``lax.top_k``'s tie order: on an integer lattice, where every
+    distance is exact in both packages and ties sit at the kth distance
+    and among masked inf slots, ``knn_grid`` (rings 1 and 2),
+    ``ball_grid``, ``knn_bruteforce`` and ``knn_cloud`` return the JAX
+    package's indices in order.
 """
 
 import jax.numpy as jnp
@@ -26,6 +31,8 @@ from scipy.spatial import cKDTree
 import pct_tpu.neighbors.cellknn as jck
 from pct_tpu.core import from_numpy as jax_from_numpy
 from pct_tpu.neighbors import knn_cloud_grid as jax_knn_cloud_grid
+from pct_tpu.neighbors.bruteforce import knn_bruteforce as jax_knn_bruteforce
+from pct_tpu.neighbors.bruteforce import knn_cloud as jax_knn_cloud
 from pct_tpu.neighbors.grid import build_grid as jax_build_grid
 from pct_tpu.neighbors.grid import estimate_cell_size as jax_cell_size
 from pct_tpu.neighbors.knn import ball_grid as jax_ball_grid
@@ -34,7 +41,13 @@ from pct_tpu.ops.pallas_select import knn_select as jax_select
 from pct_tpu.ops.pallas_select import knn_select_coords as jax_select_coords
 from pct_tpu.ops.pallas_select import knn_select_rows as jax_select_rows
 from pct_tpu_torch.core import from_numpy
-from pct_tpu_torch.neighbors import ball_grid, knn_cloud_grid, knn_grid
+from pct_tpu_torch.neighbors import (
+    ball_grid,
+    knn_bruteforce,
+    knn_cloud,
+    knn_cloud_grid,
+    knn_grid,
+)
 from pct_tpu_torch.neighbors import cellknn
 from pct_tpu_torch.neighbors.grid import build_grid
 from pct_tpu_torch.ops.select import (
@@ -46,6 +59,7 @@ from pct_tpu_torch.ops.select import (
     select_rows_plain,
 )
 from pct_tpu_torch.shapes import generate_shape
+from tests.test_torch_cuda import tied_lattice
 from tests.test_torch_select import _duplicate_tile, _random_tile, _sparse_tile
 
 
@@ -368,3 +382,50 @@ def test_select_coords_k64_matches_pallas_interpret():
     np.testing.assert_array_equal(found, dj < 1e18)
     np.testing.assert_allclose(dt[found], dj[found], rtol=2e-6, atol=0)
     np.testing.assert_array_equal(np.sort(nt[found], 0), np.sort(nj[found], 0))
+
+
+def _tie_case(case):
+    """(JAX result, port result) of one query kind on ``tied_lattice``."""
+    pts, n = tied_lattice()
+    if case in ("knn_bruteforce", "knn_bruteforce_inf_slots"):
+        k = 10 if case == "knn_bruteforce" else n + 2   # 3 inf slots
+        return (jax_knn_bruteforce(jnp.asarray(pts), n, k),
+                knn_bruteforce(torch.from_numpy(pts), n, k))
+    if case == "knn_cloud":
+        return (jax_knn_cloud(jax_from_numpy(pts[:n]), 14),
+                knn_cloud(from_numpy(pts[:n], device="cpu"), 14))
+    rings = 2 if case == "knn_grid_rings2" else 1
+    cell = np.float32(2.0 / rings)
+    gj = jax_build_grid(jnp.asarray(pts), n, jnp.asarray(cell))
+    gt = build_grid(torch.from_numpy(pts), n, torch.tensor(cell))
+    q, qi = np.array(gj.sorted_points)[:n], np.array(gj.order)[:n]
+    if case == "ball_grid":
+        return (jax_ball_grid(gj, jnp.asarray(q), 1.5, 24, capacity=16),
+                ball_grid(gt, torch.from_numpy(q), 1.5, 24, capacity=16))
+    kw = dict(capacity=16 // rings ** 3 + 1, rings=rings, tile=128)
+    return (jax_knn_grid(gj, jnp.asarray(q), 10,
+                         query_indices=jnp.asarray(qi), **kw),
+            knn_grid(gt, torch.from_numpy(q), 10,
+                     query_indices=torch.from_numpy(qi), **kw))
+
+
+@pytest.mark.parametrize("case", [
+    "knn_grid_rings1", "knn_grid_rings2", "ball_grid", "knn_bruteforce",
+    "knn_bruteforce_inf_slots", "knn_cloud"])
+def test_tie_order_matches_lax_top_k(case):
+    rj, rt = _tie_case(case)
+    idx_j, d_j = (np.asarray(a) for a in rj[:2])
+    idx_t, d_t = (a.numpy() for a in rt[:2])
+    # the same exact d²; XLA's float32 square root on the CPU can be 1 ulp
+    # from the correctly rounded one
+    np.testing.assert_allclose(d_t, d_j, rtol=2.4e-7, atol=0)
+    k = d_j.shape[1]
+    fin = np.isfinite(d_j)
+    # ties at the kth distance and inf slots are both present
+    assert (fin[:, k - 1] & (d_j[:, k - 1] == d_j[:, k - 2])).any() \
+        or not fin.all()
+    np.testing.assert_array_equal(idx_t, idx_j)
+    if case.startswith("knn_grid") or case == "ball_grid":
+        for name in ("valid", "exact"):
+            np.testing.assert_array_equal(getattr(rt, name).numpy(),
+                                          np.asarray(getattr(rj, name)))

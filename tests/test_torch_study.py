@@ -26,6 +26,11 @@ helpers: the port against the JAX package, on the CPU.
   converged k of every sample equal. The threshold is placed in a gap
   of the rung differences, so that no decision sits within float32
   noise of it.
+- The study's neighbor lists on a tied cloud (a dyadic lattice surface,
+  every distance exact, ties at many rungs): each package's own
+  ``knn_grid`` gives the same lists in the same order (the lower
+  candidate first on equal distances, as ``lax.top_k``), so each
+  package's ladder on its own lists converges at the same k.
 - ``explicit_quadratic_neighbor_study`` on a small sphere: the two
   packages draw different samples (torch's generator cannot reproduce
   jax.random), so the recommended k may differ by the sampling noise:
@@ -44,6 +49,8 @@ import pct_tpu.pipeline.neighbor_study as jstudy
 import pct_tpu.utils.filters as jfilters
 import pct_tpu.utils.transforms as jtransforms
 from pct_tpu.core import from_numpy as jax_from_numpy
+from pct_tpu.neighbors.grid import build_grid as jax_build_grid
+from pct_tpu.neighbors.knn import knn_grid as jax_knn_grid
 from pct_tpu.curvature.pca import pca_principal_curvatures as jax_pca
 from pct_tpu.curvature.pca import surface_variation as jax_sv
 from pct_tpu.pipeline import pointwise_curvature as jax_pointwise
@@ -64,6 +71,8 @@ from pct_tpu_torch.pipeline import (
     explicit_quadratic_neighbor_study,
     pointwise_curvature,
 )
+from pct_tpu_torch.neighbors import knn_grid
+from pct_tpu_torch.neighbors.grid import build_grid
 from pct_tpu_torch.pipeline.neighbor_study import _ladder_converged_k
 from pct_tpu_torch.shapes import generate_shape
 from pct_tpu_torch.utils import filters, transforms
@@ -264,6 +273,51 @@ def test_ladder_converged_k_matches_jax(criterion):
     np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
     np.testing.assert_array_equal(k_t.numpy(), np.asarray(k_j))
     assert 0.2 < c_t.float().mean() and k_t[c_t].float().std() > 1
+
+
+def test_study_ladder_from_own_knn_grid_on_tied_cloud():
+    """The study's steps after its sample and cell size, in each package
+    on its own: ``knn_grid`` of the sample (kmax + 1 neighbors, the
+    study's capacity), then ``_ladder_converged_k``. The cloud is
+    z = (x² − y²)/8 + x³/64 over an integer (x, y) lattice: dyadic
+    coordinates, exact d², many neighbors at equal distance; the cell
+    size is fixed, as the packages' own estimates differ in the last
+    bits (tests/test_torch_grid.py)."""
+    rng = np.random.default_rng(4)
+    x, y = np.meshgrid(np.arange(-9, 10), np.arange(-9, 10), indexing="ij")
+    z = (x * x - y * y) / 8 + x ** 3 / 64
+    pts = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
+    pts = pts[rng.permutation(len(pts))]
+    n = len(pts)
+    sample = rng.choice(n, 64, replace=False).astype(np.int32)
+    kmin, kmax = 6, 24
+    cell = np.float32(3.0)
+    gj = jax_build_grid(jnp.asarray(pts), n, jnp.asarray(cell))
+    gt = build_grid(torch.from_numpy(pts), n, torch.tensor(cell))
+    kw = dict(capacity=int(2.5 * kmax) + 16, tile=64)
+    rj = jax_knn_grid(gj, jnp.asarray(pts[sample]), kmax + 1,
+                      query_indices=jnp.asarray(sample), **kw)
+    rt = knn_grid(gt, torch.from_numpy(pts[sample]), kmax + 1,
+                  query_indices=torch.from_numpy(sample), **kw)
+    nbr_j, nbr_t = np.asarray(rj.indices), rt.indices.numpy()
+    d = rt.dists.numpy()
+    assert (d[:, 1:] == d[:, :-1]).mean() > 0.1      # ties at many rungs
+    np.testing.assert_array_equal(nbr_t, nbr_j)
+    # the port's rung curvatures place the threshold, as above
+    nb = torch.from_numpy(pts[nbr_t] - pts[sample][:, None, :])
+    K = np.stack([explicit_curvatures(fit_quadratic(
+        tangent_frames(nb, m)[0], m)).K.numpy() for m in (
+        torch.arange(kmax + 1) < k for k in range(kmin, kmax + 2))])
+    tol = _gap_threshold(np.abs(K[1:] - K[:-1]).astype(np.float64))
+    k_j, c_j = jstudy._ladder_converged_k(
+        jnp.asarray(pts), jnp.asarray(sample), jnp.asarray(nbr_j), kmin,
+        kmax, tol, scale_sq=1.0)
+    k_t, c_t = _ladder_converged_k(
+        torch.from_numpy(pts), torch.from_numpy(sample),
+        torch.from_numpy(nbr_t), kmin, kmax, tol, scale_sq=1.0)
+    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+    np.testing.assert_array_equal(k_t.numpy(), np.asarray(k_j))
+    assert 0.2 < c_t.float().mean()
 
 
 def test_neighbor_study_sphere_matches_jax():

@@ -9,8 +9,12 @@ without printing its result line:
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel of the port from the checkout's sources;
 3. the list engine, k=20, on the 1M-point torus (padded to 1<<16):
-   a. the select kernel against its plain PyTorch version on every
-      occupancy bucket of the main path: bit-identical;
+   a. the coords select kernel against its plain PyTorch version on
+      every occupancy bucket of the main path: bit-identical; beside
+      each bucket, the partial library yardstick (``torch.topk`` over
+      int64 (d² bits << 32 | m) keys of the prebuilt masked d², whose
+      winners' coordinates are the kernel's) and the first design's
+      time;
    b. the main path, ``fast_curvature(k=20)``: launch counts, kNN
       certificate, NaNs, K against the analytic torus, kth distances
       against brute force on sampled rows;
@@ -41,9 +45,12 @@ without printing its result line:
    e. the band kNN at k=20 on the whole cloud, at the smallest band
       (multiple of 128) that every row block fits (the exact fraction at
       the default band is printed): the band kernel against
-      its plain version, bit for bit, on every row block the plain
-      version reaches within BAND_PLAIN_BUDGET_S (in a seeded random
-      order); ``knn_cellwise_band`` against the port's rows path in
+      its plain version, bit for bit, with every slot computed
+      (``counts=None``) and with the cells' counts (padding slots
+      filled), each on every row block the plain version reaches within
+      BAND_PLAIN_BUDGET_S (in a seeded random order); its times at the
+      fitted and the default band beside the first design's;
+      ``knn_cellwise_band`` against the port's rows path in
       sorted space (``knn_cellwise(original_ids=False)``): exact >=
       0.999, kth distances bit-equal and winner sets equal up to ties at
       the kth distance on rows both certify; 1 band launch a call;
@@ -75,24 +82,31 @@ MEMBER_FLOPS = 70                # 35 mul + 35 add per weighted member
 TIMED_REPS = 5
 PLAIN_BUDGET_S = 60.0            # plain-version time for the k=100 rows check
 CUT_ROWS = 4096                  # cell rows a bucket keeps past that budget
-SELECT_COORDS_PR2_MS = (13.62, 13.80)   # PERF.md, four runs
 # The first designs' per-bucket ms on the same buckets of the 1M torus
 # (PERF.md's tables: the one-thread-per-query list and bisection kernels,
-# NVIDIA H100 80GB HBM3, 700 W).
+# NVIDIA H100 80GB HBM3, 700 W; select_coords as the list kernel's own
+# chip_smoke.py measured it on these buckets, beside the warp design).
 FIRST_DESIGN_MS = {
+    "select_coords": (4.710, 6.509, 2.181, 0.243),
     "select_rows k=20": (4.625, 6.468, 2.160, 0.234),
     "select_pos k=20": (4.680, 6.435, 2.141, 0.245),
     "select_rows k=100": (41.027, 69.422, 75.434, 106.951, 56.090, 41.825),
     "moments": (3.564, 7.456, 6.986, 11.210, 5.639, 3.821),
 }
-FIRST_DESIGN_CALL_MS = {"select_rows k=20": (13.385, 13.487),
+FIRST_DESIGN_CALL_MS = {"select_coords": (13.62, 13.904),
+                        "select_rows k=20": (13.385, 13.487),
                         "select_pos k=20": (13.222, 13.501),
                         "select_rows k=100": (390.7, 391.2),
                         "moments": (38.68, 38.99)}
 MISSING_D2 = 3.0e38
 BAND_BC = 8                      # cells a row block of the band kNN
+NINE_BANDS = 9                   # bands a row block's windows make
 BAND_PLAIN_BUDGET_S = 30.0       # plain-version time for the band check
 BAND_CHUNK_BLOCKS = 512          # row blocks a plain-version call
+# the band kernel's first design (one thread a slot), ms per call at the
+# fitted band 1024 and the default band 384 (PERF.md, NVIDIA H100 80GB
+# HBM3, 700 W)
+BAND_FIRST_DESIGN_MS = {1024: 37.771, 384: 19.381}
 
 
 def log(*a):
@@ -168,12 +182,13 @@ def masked_d2(ops):
     return torch.where(ok, d2, MISSING_D2)
 
 
-def topk_yardstick(ops, k, d_k, pos_k):
-    """The rows/positions kernels' partial library yardstick: one
-    ``torch.topk`` over int64 keys (d² bits << 32 | m) of the prebuilt
-    masked d², which returns the same winners in the same order. Checks
-    that against the positions kernel's output on found slots; returns
-    the call's median ms."""
+def topk_yardstick(ops, k, d_k, won, emit=None):
+    """The selects' partial library yardstick: one ``torch.topk`` over
+    int64 keys (d² bits << 32 | m) of the prebuilt masked d², which
+    returns the same winners in the same order. Checks ``emit`` of its
+    winner positions (default: the positions themselves) against a
+    kernel's output ``won`` on found slots; returns the call's median
+    ms."""
     import torch
 
     d2 = masked_d2(ops)
@@ -183,8 +198,11 @@ def topk_yardstick(ops, k, d_k, pos_k):
     key.bitwise_left_shift_(32).bitwise_or_(
         torch.arange(M, dtype=torch.int64, device=key.device))
     top = torch.topk(key, k, dim=-1, largest=False).values
-    found = d_k < 1e18
-    check(bool(((top & 0xFFFFFFFF) == pos_k)[found].all()),
+    pos = top & 0xFFFFFFFF
+    same = (pos if emit is None else emit(pos)) == won
+    if same.dim() > d_k.dim():
+        same = same.all(-1)
+    check(bool(same[d_k < 1e18].all()),
           "torch.topk yardstick: the kernel's winners in the same order")
     ms = event_ms(lambda: torch.topk(key, k, dim=-1, largest=False), 3)
     del key, top
@@ -232,12 +250,17 @@ def select_vs_plain(cellknn, grid, cells, spec, k):
         mismatched += int((~same).sum())
         max_err = max(max_err, float((d_k - d_p).abs().max()),
                       float((n_k - n_p).abs().max()))
+        T, C = sel[0].shape[:2]
+        lib_ms = topk_yardstick(
+            sel, k, d_k, n_k, lambda pos, sel=sel, T=T, C=C: torch.gather(
+                sel[1], 1, pos.reshape(T, C * k, 1).expand(-1, -1, 3))
+            .reshape(T, C, k, 3))
         nb = nbytes(*sel, d_k, n_k)
         b_ms, b_by = bound(pairs, PAIR_FLOPS, 0, nb)
         per_bucket.append(dict(
             bucket=b, cells=int((args[0] != cellknn.PAD_ID).sum()),
             capacity=sp.capacity, M=sel[1].shape[1], pairs=pairs, bytes=nb,
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             ms=event_ms(lambda sel=sel: knn_select_coords(*sel, k),
                         TIMED_REPS),
             plain_ms=event_ms(lambda sel=sel: select_coords_plain(*sel, k),
@@ -563,19 +586,21 @@ def kernel_row(name, source, replaces, launches, max_err, per_bucket,
     }
 
 
-def band_vs_plain(ops, k, bc, cap, band):
+def band_vs_plain(ops, k, bc, cap, band, counts=None):
     """The band kernel against its plain version, bit for bit, on row
     blocks in a seeded random order until BAND_PLAIN_BUDGET_S of
-    plain-version time. Returns (kernel outputs, blocks checked, rows
-    checked, max abs err, plain seconds, whether every block was
-    checked)."""
+    plain-version time, with ``counts`` (None: every slot computed).
+    Returns (kernel outputs, blocks checked, rows checked, max abs err,
+    plain seconds, whether every block was checked)."""
     import torch
 
     from pct_tpu_torch.experimental import band_select_plain, knn_band_select
 
     nb = ops[3].shape[0]
     q = bc * cap
-    got = knn_band_select(*ops, k=k, bc=bc, cap=cap, band=band)
+    mode = "all slots" if counts is None else "counts"
+    got = knn_band_select(*ops, k=k, bc=bc, cap=cap, band=band,
+                          counts=counts)
     torch.cuda.synchronize()
     d_k, r_k, c_k = (a.reshape(nb, q, *a.shape[1:]) for a in got)
     order = torch.randperm(nb, generator=torch.Generator().manual_seed(0))
@@ -588,7 +613,8 @@ def band_vs_plain(ops, k, bc, cap, band):
         idx = order[s:s + BAND_CHUNK_BLOCKS].to(ops[3].device)
         sub = ops[:3] + tuple(a[idx] for a in ops[3:])
         t0 = time.perf_counter()
-        d_p, r_p, c_p = band_select_plain(*sub, k, bc, cap, band)
+        d_p, r_p, c_p = band_select_plain(
+            *sub, k, bc, cap, band, None if counts is None else counts[idx])
         torch.cuda.synchronize()
         plain_s += time.perf_counter() - t0
         d_p, r_p, c_p = (a.reshape(idx.numel(), q, *a.shape[1:])
@@ -601,11 +627,12 @@ def band_vs_plain(ops, k, bc, cap, band):
         max_err = max(max_err, float((d_k[idx] - d_p).abs().max()),
                       float((r_k[idx] - r_p).abs().max()),
                       float((c_k[idx] - c_p).abs().max()))
-    log(f"band kernel vs plain: {checked} of {nb} row blocks ({checked * q} "
-        f"query slots) compared in {plain_s:.1f} s of plain-version time, "
-        f"{mismatched} slots mismatched, max abs err {max_err}")
+    log(f"band kernel vs plain ({mode}): {checked} of {nb} row blocks "
+        f"({checked * q} query slots) compared in {plain_s:.1f} s of "
+        f"plain-version time, {mismatched} slots mismatched, max abs err "
+        f"{max_err}")
     check(mismatched == 0 and max_err == 0.0,
-          "band kernel bit-identical to its plain version")
+          f"band kernel bit-identical to its plain version ({mode})")
     return got, checked, checked * q, max_err, plain_s, checked == nb
 
 
@@ -686,7 +713,8 @@ def band_phase(label, cloud, counters, none):
     # rows lose their certificate. The phase runs at the smallest multiple
     # of 128 that every block's runs fit, and reports the default's exact.
     band_d = default_band(bc, cap)
-    ops_d, _, _, ok_d = band_operands(grid, cells, blocks, cap, bc, band_d)
+    ops_d, _, counts_d, ok_d = band_operands(grid, cells, blocks, cap, bc,
+                                             band_d)
     exact_d = float(knn_cellwise_band(grid, cells, blocks, k, cap, bc=bc)
                     .exact[:n].float().mean())
     band, span = fitted_band(grid, cells, blocks, cap, bc)
@@ -694,14 +722,16 @@ def band_phase(label, cloud, counters, none):
         f"{bc}, cap {cap}, cand_cap {cand_cap}, {nb * bc * cap} query slots;"
         f" default band {band_d}: {int(ok_d.sum())} blocks fit, exact "
         f"{exact_d:.6f}; widest block span {span} rows, band {band}")
-    ops, _, ok_q, band_ok = band_operands(grid, cells, blocks, cap, bc, band)
+    ops, _, counts, band_ok = band_operands(grid, cells, blocks, cap, bc,
+                                            band)
     check(bool(band_ok.all()), "every row block's runs fit the band")
+    err_all = band_vs_plain(ops, k, bc, cap, band)[3]
     got, blocks_checked, rows_checked, band_err, plain_s, all_blocks = \
-        band_vs_plain(ops, k, bc, cap, band)
+        band_vs_plain(ops, k, bc, cap, band, counts)
+    band_err = max(band_err, err_all)
     # the work the data needs: each real query slot against its cell's runs
-    real = ok_q.reshape(nb, bc, cap).sum(-1).to(torch.int64)
-    pairs = int((ops[5].sum(-1).to(torch.int64) * real).sum())
-    nb_bytes = nbytes(*ops, *got)
+    pairs = int((ops[5].sum(-1).to(torch.int64) * counts).sum())
+    nb_bytes = nbytes(*ops, counts, *got)
     del got
 
     res, walls, launches = drive(
@@ -722,14 +752,18 @@ def band_phase(label, cloud, counters, none):
     del res, rows_res
 
     ms = event_ms(lambda: knn_band_select(*ops, k=k, bc=bc, cap=cap,
-                                          band=band), TIMED_REPS)
+                                          band=band, counts=counts),
+                  TIMED_REPS)
     ms_d = event_ms(lambda: knn_band_select(*ops_d, k=k, bc=bc, cap=cap,
-                                            band=band_d), TIMED_REPS)
+                                            band=band_d, counts=counts_d),
+                    TIMED_REPS)
+    ms_all = event_ms(lambda: knn_band_select(*ops, k=k, bc=bc, cap=cap,
+                                              band=band), TIMED_REPS)
     del ops_d
     if not all_blocks:      # else the check above timed a whole plain pass
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        band_select_plain(*ops, k, bc, cap, band)
+        band_select_plain(*ops, k, bc, cap, band, counts)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
     plain_ms = plain_s * 1e3
@@ -747,16 +781,20 @@ def band_phase(label, cloud, counters, none):
         f"{walls[0]:.3f} s), {N_POINTS / wall:.0f} points/s; "
         f"build_row_blocks host time {statistics.median(host) * 1e3:.1f} ms "
         f"(median of 3)")
-    log(f"[{label}] band kernel k={k}: {ms:.3f} ms/call (1 launch/call) over "
-        f"{nb} blocks, cap {cap}, band {band}, "
-        f"{ms * 1e3 / nb:.3f} us/block; plain {plain_ms:.1f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by}); at the default band {band_d}: "
-        f"{ms_d:.3f} ms/call; rows kernel on the same cells in one "
-        f"bucket (C {cap}, M {cand_cap}): {rows_ms:.3f} ms")
+    first = BAND_FIRST_DESIGN_MS
+    log(f"[{label}] band kernel k={k} (counts, the main path's mode): "
+        f"{ms:.3f} ms/call (1 launch/call) over {nb} blocks, cap {cap}, "
+        f"band {band} (first design {fmt_ms(first.get(band))}), "
+        f"{ms * 1e3 / nb:.3f} us/block; every slot computed: {ms_all:.3f} "
+        f"ms/call; plain {plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}); "
+        f"at the default band {band_d}: {ms_d:.3f} ms/call (first design "
+        f"{fmt_ms(first.get(band_d))}); rows kernel on the same cells in "
+        f"one bucket (C {cap}, M {cand_cap}): {rows_ms:.3f} ms")
     return dict(pairs=pairs, bytes=nb_bytes, ms=ms, plain_ms=plain_ms,
-                default_band_ms=ms_d,
+                default_band_ms=ms_d, all_slots_ms=ms_all,
                 launches=launches["band_select"], max_err=band_err,
-                blocks_checked=blocks_checked, rows_checked=rows_checked)
+                blocks_checked=blocks_checked, rows_checked=rows_checked,
+                dense_key_bytes=nb * bc * cap * NINE_BANDS * band * 8)
 
 
 def study_phase(label, cloud):
@@ -1039,11 +1077,16 @@ def main():
                                rows100_err, rows100_buckets[name])
     rows[1]["library_call"] = ("torch.kthvalue of the prebuilt masked d2 "
                                "(partial: tau only)")
-    for r in rows[2:4]:
+    for r in rows[0:1] + rows[2:4]:
         r["library_call"] = ("torch.topk over int64 (d2 bits << 32 | m) "
                              "keys of the prebuilt masked d2 (partial: no "
                              "d2, no missing-slot rule)")
-    for key in ("blocks_checked", "rows_checked", "default_band_ms"):
+    rows[4]["library_call"] = (
+        "none: no single call selects over the band runs; a dense topk "
+        "over S x 9*band int64 keys would need "
+        f"{band_row['dense_key_bytes'] / 1e9:.0f} GB")
+    for key in ("blocks_checked", "rows_checked", "default_band_ms",
+                "all_slots_ms"):
         rows[4][key] = band_row[key]
     # calls per driven path: 1 cold + 3 warm, the implicit k=100 path 1 + 2
     for r, calls, k in [(r, 4, "") for r in rows] + [
@@ -1054,10 +1097,6 @@ def main():
             f"({r['launches'] // calls} launches/call), plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}){lib}")
-    lo, hi = SELECT_COORDS_PR2_MS
-    log(f"[{label}] select_coords k={K_LIST}: {rows[0]['ms']:.3f} ms against "
-        f"{lo}-{hi} ms before the list limit rose to 128; within 10%: "
-        f"{0.9 * lo <= rows[0]['ms'] <= 1.1 * hi}")
     log("select_pos: no entry point of either package selects positions "
         "(the JAX package's only caller is _tile_select(want='pos')), so its "
         "main-path launches are 0; it is held to its plain version above")

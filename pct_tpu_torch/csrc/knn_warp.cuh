@@ -1,5 +1,5 @@
-// Warp-per-query k-nearest machinery shared by select_rows.cu and
-// moments.cu, for sm_90a (H100).
+// Warp-per-query k-nearest machinery shared by select_rows.cu,
+// select_coords.cu, band_select.cu and moments.cu, for sm_90a (H100).
 //
 // Layout. One thread block per cell row t, W = min(MAX_WARPS, C) warps;
 // warp w serves the row's query slots c = w, w + W, ... in turn. Where
@@ -23,6 +23,15 @@
 // value and, exactly, how many values lie below it and how many equal it.
 // (Combining equal digits first with __match_any_sync was measured
 // slower on the H100.)
+//
+// k smallest in order (the selects): every slot below the kth value tau,
+// then the first k - below slots equal to tau, compacted in candidate
+// order (ballot + popc prefix sums) as keys (d2 bits << 32 | position),
+// which is exactly the set of the k smallest (d2, position) pairs; the
+// <= 128 keys are unique and a bitonic network in the warp's scratch
+// sorts them into the order the Pallas kernels' rounds of min and
+// first-argmin emit. select_kernel runs that over one cell row per block
+// with an emitter for the outputs (ids, positions or coordinates).
 
 #pragma once
 
@@ -215,6 +224,162 @@ __device__ unsigned radix_kth(const Src& src, int M, int kk, unsigned* hist,
   __syncwarp();
   *below = under;
   return prefix;
+}
+
+// select: usable when valid != 0, not the query itself and below the
+// sentinel (nothing at or above it is ever selected)
+struct SelectRule {
+  __device__ static unsigned bits(int valid, int cand, int qr, unsigned b) {
+    return (valid != 0 && cand != qr && b < sent_bits()) ? b : sent_bits();
+  }
+};
+
+// Sort keys[0, n) ascending in place (bitonic network over the next power
+// of two, padded with ~0), every lane of the warp together.
+__device__ inline void warp_sort(unsigned long long* keys, int n, int lane) {
+  int P = 1;
+  while (P < n) P <<= 1;
+  for (int i = n + lane; i < P; i += 32) keys[i] = ~0ull;
+  __syncwarp();
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < (P >> 1); t += 32) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const unsigned long long a = keys[i], b = keys[j];
+        if ((a > b) == ((i & size) == 0)) {
+          keys[i] = b;
+          keys[j] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// How many of the kk smallest are found: the slots below tau, and the
+// rest at tau unless tau is the sentinel (those slots are missing).
+__device__ __forceinline__ int found_count(unsigned tau, int below, int kk) {
+  return below + (tau < sent_bits() ? kk - below : 0);
+}
+
+// One group of 32 candidates of the compaction, one a lane, in candidate
+// order: v its bits (~0u past the end), pos the key's low word. Appends
+// the lanes taken to keys[base, ...) and advances base and eq_left (the
+// slots at tau still to take).
+__device__ __forceinline__ void compact_group(unsigned v, unsigned pos,
+                                              unsigned tau, int lane,
+                                              unsigned long long* keys,
+                                              int& base, int& eq_left) {
+  const unsigned lt_mask = (1u << lane) - 1u;   // lanes below this one
+  const unsigned eq = __ballot_sync(FULL, v == tau);
+  const bool take = v < tau || (v == tau && __popc(eq & lt_mask) < eq_left);
+  const unsigned took = __ballot_sync(FULL, take);
+  if (take)
+    keys[base + __popc(took & lt_mask)] =
+        (static_cast<unsigned long long>(v) << 32) | pos;
+  base += __popc(took);
+  eq_left -= min(__popc(eq), eq_left);
+}
+
+// The winners of one query over src(m), m < M (M >= 1): sorts the keys
+// (bits << 32 | m) of the min(k, M) smallest into the warp's scratch and
+// returns how many were found.
+template <class Src>
+__device__ int select_sorted(const Src& src, int M, int k,
+                             unsigned char* scratch, int lane) {
+  const int kk = min(k, M);
+  int below, equal;
+  const unsigned tau = radix_kth(src, M, kk, reinterpret_cast<unsigned*>(
+                                     scratch), lane, &below, &equal);
+  const int n = found_count(tau, below, kk);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(scratch);
+  int base = 0, eq_left = n - below;
+  const int groups = (M + 31) >> 5;
+  for (int g = 0; g < groups && base < n; ++g) {
+    const int m = (g << 5) + lane;
+    compact_group(m < M ? src(m) : ~0u, static_cast<unsigned>(m), tau, lane,
+                  keys, base, eq_left);
+  }
+  __syncwarp();
+  warp_sort(keys, n, lane);
+  return n;
+}
+
+__device__ __forceinline__ float key_dist(unsigned long long key) {
+  return __fsqrt_rn(
+      fmaxf(__uint_as_float(static_cast<unsigned>(key >> 32)), 0.f));
+}
+
+__device__ __forceinline__ int key_pos(unsigned long long key) {
+  return static_cast<int>(key & 0xffffffffu);
+}
+
+// One block per cell row t, warps over its query slots: each query's n
+// sorted winner keys go to out.write(row, keys, n, query index, k, lane),
+// which writes its k outputs (missing ones past n).
+template <class Out, bool CACHED>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+select_kernel(const float* __restrict__ q,      // (T,C,3)
+              const float* __restrict__ p,      // (T,M,3)
+              const int* __restrict__ cand,     // (T,M)
+              const int* __restrict__ qrow,     // (T,C)
+              const int* __restrict__ valid,    // (T,M)
+              Out out, int C, int M, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t t = blockIdx.x;
+  const int W = blockDim.x >> 5, warp = threadIdx.x >> 5,
+            lane = threadIdx.x & 31;
+  const float* pt = p + t * M * 3;
+  const int* ct = cand + t * M;
+  const int* vt = valid + t * M;
+  const Block b = carve(smem, CACHED, W, warp, pt, ct, vt, M);
+  const unsigned long long* keys =
+      reinterpret_cast<const unsigned long long*>(b.scratch);
+  for (int c = warp; c < C; c += W) {
+    const size_t qi = t * C + c;
+    const float qx = q[qi * 3], qy = q[qi * 3 + 1], qz = q[qi * 3 + 2];
+    const int qr = qrow[qi];
+    if constexpr (CACHED) {
+      fill_bits<SelectRule>(b.bits, b.row, qx, qy, qz, qr, M, lane);
+      const int n = select_sorted(CachedBits{b.bits}, M, k, b.scratch, lane);
+      out.write(b.row, keys, n, qi, k, lane);
+    } else {
+      const GlobalRow row{pt, ct, vt};
+      const int n = select_sorted(
+          RowBits<SelectRule, GlobalRow>{row, qx, qy, qz, qr}, M, k,
+          b.scratch, lane);
+      out.write(row, keys, n, qi, k, lane);
+    }
+    __syncwarp();
+  }
+}
+
+// Launch select_kernel over T cell rows on `stream`; returns
+// cudaGetLastError() (0 = launched).
+template <class Out>
+int launch_select(const float* q, const float* p, const int* cand,
+                  const int* qrow, const int* valid, Out out, int T, int C,
+                  int M, int k, void* stream) {
+  if (T <= 0) return 0;
+  const int W = min(MAX_WARPS, C);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_cache(W, M)) {
+    static bool raised = false;   // above 48 KB needs the attribute
+    if (!raised) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          select_kernel<Out, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(CACHE_BUDGET));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      raised = true;
+    }
+    select_kernel<Out, true><<<T, W * 32, smem_bytes(W, M, true), s>>>(
+        q, p, cand, qrow, valid, out, C, M, k);
+  } else {
+    select_kernel<Out, false><<<T, W * 32, smem_bytes(W, M, false), s>>>(
+        q, p, cand, qrow, valid, out, C, M, k);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace knn_warp

@@ -7,7 +7,8 @@ the occupied cells into blocks that never span a grid (y,z) row, so the
 of at most (bc+2)·capacity rows; ``knn_cellwise_band`` builds each
 block's band starts, each cell's run windows inside them, the query
 coordinates and the window edges, runs the band select
-(``band_select.knn_band_select``, one launch) and scatters the per-slot
+(``band_select.knn_band_select``, one launch, given the cells' point
+counts so that it skips the padding slots) and scatters the per-slot
 results into SORTED-space rows.
 """
 
@@ -33,10 +34,12 @@ def band_operands(grid: GridIndex, cells: CellTable, block_index, capacity: int,
                   bc: int, band: int):
     """The band select's operands for the row blocks of ``block_index``.
 
-    Returns (ops, qrow (S,) each slot's row, ok_q (S,) real query slots,
-    band_ok (NB,) every run of the block fits its band), where ops =
-    (px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo_edge, hi_edge)
-    in ``knn_band_select``'s order. The coordinate planes are padded by
+    Returns (ops, qrow (S,) each slot's row, counts (NB, bc) int32
+    points a cell, 0 for padding cells, band_ok (NB,) every run of the
+    block fits its band), where ops = (px, py, pz, bs, rs_rel, run_len,
+    qpts, qrow_base, lo_edge, hi_edge) in ``knn_band_select``'s order
+    and ``counts`` is its ``counts`` operand: slot s of cell c is real
+    where s % capacity < counts[b, c]. The coordinate planes are padded by
     ``band`` zero rows (the JAX package pads by max(band, 1024) for its
     fixed-size DMA; no result depends on the pad).
     """
@@ -92,8 +95,7 @@ def band_operands(grid: GridIndex, cells: CellTable, block_index, capacity: int,
            rs_rel.to(_I32).contiguous(), run_len.to(_I32).contiguous(),
            qpts.contiguous(), start.contiguous(), lo_edge.contiguous(),
            hi_edge.contiguous())
-    ok_q = (qslot < count[..., None]).reshape(-1)
-    return ops, qrow3.reshape(-1), ok_q, band_ok
+    return ops, qrow3.reshape(-1), count.to(_I32).contiguous(), band_ok
 
 
 def knn_cellwise_band(grid: GridIndex, cells: CellTable, block_index, k: int,
@@ -120,10 +122,12 @@ def knn_cellwise_band(grid: GridIndex, cells: CellTable, block_index, k: int,
             f"band {band} exceeds the kernel's window {MAX_BAND}: "
             f"reduce bc (currently {bc}) or capacity (currently {capacity}) "
             f"so (bc+3)*capacity <= {MAX_BAND}")
-    ops, qrow, ok_q, band_ok = band_operands(grid, cells, block_index,
-                                             capacity, bc, band)
+    ops, qrow, counts, band_ok = band_operands(grid, cells, block_index,
+                                               capacity, bc, band)
     dists, rows, cover = knn_band_select(*ops, k=k, bc=bc, cap=capacity,
-                                         band=band)
+                                         band=band, counts=counts)
+    slot = torch.arange(capacity, dtype=_I32, device=counts.device)
+    ok_q = (slot < counts[..., None]).reshape(-1)   # the computed slots
 
     found = dists < 1e18                                       # (S, k)
     exact = (found[:, k - 1] & (dists[:, k - 1] <= cover)

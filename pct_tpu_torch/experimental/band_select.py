@@ -23,21 +23,28 @@ to cell c = s // cap, slot s % cap; its row is ``qrow = qrow_base[b, c]
   min(min(min(qx−lox, hix−qx), min(qy−loy, hiy−qy)), min(qz−loz,
   hiz−qz)).
 
-Every query slot is computed, padding slots included, as the Pallas
-kernel computes them. Plane rows past the end of the planes read 0.
+Plane rows past the end of the planes read 0. With ``counts=None``
+every query slot is computed, padding slots included, as the Pallas
+kernel computes them. With ``counts`` (NB, bc) int32, the points of
+each cell (0 for a padding cell), a slot whose ``s % cap >=
+counts[b, c]`` is a padding slot: it is not computed and reads the
+missing-slot fill in all k places, distance sqrt(3e38) and row ``bs[b,
+0]``, with its ``cover`` computed as above. ``knn_cellwise_band``
+passes its cells' counts and drops exactly those slots, so its results
+are the same in both modes.
 
 On CUDA tensors the hand-written kernel ``csrc/band_select.cu`` runs
 (built with nvcc at first use; ``knn_band_select.launches`` counts its
-launches); on CPU tensors the plain PyTorch version
-``band_select_plain``. Both do the same IEEE float32 operations in the
-same order and agree bit for bit on the card.
+launches): one warp per computed query slot on ``csrc/knn_warp.cuh``,
+over a fixed-size tile of the block's run hulls. On CPU tensors the
+plain PyTorch version ``band_select_plain`` runs. Both do the same IEEE
+float32 operations in the same order and agree bit for bit on the card.
 
 Documented divergences from the JAX package: k is limited to
-``KMAX`` = 128 (the kernel's per-thread list; the Pallas kernel has no
-limit), and a block holds at most 1024 query slots (one thread each).
-``MAX_BAND`` = 1024 is the JAX package's DMA window, kept so both
-packages accept and refuse the same ``band``; here it bounds the
-kernel's shared-memory staging (9·band·12 bytes, 110,592 at 1024).
+``KMAX`` = 128 (the keys a warp sorts; the Pallas kernel has no limit),
+a block holds at most 1024 query slots, and the ``counts`` mode, which
+the JAX kernel does not have. ``MAX_BAND`` = 1024 is the JAX package's
+DMA window, kept so both packages accept and refuse the same ``band``.
 """
 
 from __future__ import annotations
@@ -48,9 +55,15 @@ import functools
 import torch
 
 from pct_tpu_torch.ops import build
-from pct_tpu_torch.ops.select import KMAX, MAX_QUERIES, _emit_rows, _plain
+from pct_tpu_torch.ops.select import (
+    KMAX,
+    MAX_QUERIES,
+    MISSING_D2,
+    _emit_rows,
+    _plain,
+)
 
-MAX_BAND = 1024          # band rows a block stages (the JAX DMA window)
+MAX_BAND = 1024          # longest band (the JAX package's DMA window)
 NINE = 9
 _PLAIN_PAIRS = 1 << 24   # (query slots × 9·band) elements per plain chunk
 
@@ -71,7 +84,7 @@ def band_cover(qpts: torch.Tensor, lo_edge: torch.Tensor,
 
 def band_select_plain(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base,
                       lo_edge, hi_edge, k: int, bc: int, cap: int,
-                      band: int):
+                      band: int, counts=None):
     """Plain PyTorch version of ``knn_band_select``.
 
     Each (block, cell) pair is one row of the select's plain version
@@ -79,6 +92,7 @@ def band_select_plain(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base,
     9·band positions, valid where they lie in the cell's runs, with the
     global rows ``bs[b, j] + p`` as candidate ids (self-exclusion and the
     emitted rows). Blocks go in chunks that bound the distance matrix.
+    With ``counts``, the padding slots then get the missing-slot fill.
     """
     nb = bs.shape[0]
     q = bc * cap
@@ -108,11 +122,15 @@ def band_select_plain(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base,
                       valid.reshape(t * bc, m).to(torch.int32), k, _emit_rows)
         dists[blk.start * q:blk.stop * q] = d.reshape(-1, k)
         rows[blk.start * q:blk.stop * q] = r.reshape(-1, k)
+    if counts is not None:
+        pad = (slot >= counts[..., None]).reshape(-1)           # (S,)
+        dists[pad] = torch.sqrt(dists.new_tensor(MISSING_D2))
+        rows[pad] = bs[:, :1].expand(nb, q).reshape(-1)[pad, None]
     return dists, rows, band_cover(qpts, lo_edge, hi_edge, cap)
 
 
 def _check(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo_edge,
-           hi_edge, k, bc, cap, band):
+           hi_edge, k, bc, cap, band, counts):
     if not 1 <= k <= KMAX:
         raise ValueError(f"k={k} outside [1, {KMAX}]: the band select keeps "
                          f"at most {KMAX} neighbors")
@@ -133,6 +151,8 @@ def _check(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo_edge,
               ("qrow_base", qrow_base, (nb, bc), torch.int32),
               ("lo_edge", lo_edge, (nb, bc, 3), torch.float32),
               ("hi_edge", hi_edge, (nb, bc, 3), torch.float32))
+    if counts is not None:
+        shapes += (("counts", counts, (nb, bc), torch.int32),)
     for name, a, shape, dtype in shapes:
         if tuple(a.shape) != shape or a.dtype != dtype:
             raise ValueError(f"{name} must be {dtype} {shape}, got "
@@ -147,7 +167,7 @@ def _check(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo_edge,
 @functools.cache
 def _kernel():
     fn = build.load("band_select").pct_band_select
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -157,7 +177,7 @@ def knn_band_select(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
                     run_len: torch.Tensor, qpts: torch.Tensor,
                     qrow_base: torch.Tensor, lo_edge: torch.Tensor,
                     hi_edge: torch.Tensor, k: int, bc: int, cap: int,
-                    band: int):
+                    band: int, counts: torch.Tensor | None = None):
     """Band selection for NB row blocks -> (dists (S,k) float32
     ascending, rows (S,k) int32 global sorted rows, cover (S,) float32),
     S = NB·bc·cap.
@@ -166,22 +186,24 @@ def knn_band_select(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
     starts; rs_rel/run_len (NB,bc,9) int32 run windows relative to the
     band start; qpts (NB,bc·cap,3) float32 query coordinates; qrow_base
     (NB,bc) int32 row of each cell's first query; lo_edge/hi_edge
-    (NB,bc,3) float32 window edges (±1e30 at grid boundaries).
-    1 <= k <= 128, bc·cap <= 1024, band <= 1024. CUDA tensors launch
-    ``csrc/band_select.cu``; CPU tensors run ``band_select_plain``.
+    (NB,bc,3) float32 window edges (±1e30 at grid boundaries); counts
+    (NB,bc) int32 points a cell, or None (every slot computed; see the
+    module docstring). 1 <= k <= 128, bc·cap <= 1024, band <= 1024.
+    CUDA tensors launch ``csrc/band_select.cu``; CPU tensors run
+    ``band_select_plain``.
     """
     ops = (px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo_edge,
            hi_edge)
-    _check(*ops, k, bc, cap, band)
+    _check(*ops, k, bc, cap, band, counts)
     dev = px.device
     if dev.type == "cpu":
-        return band_select_plain(*ops, k, bc, cap, band)
+        return band_select_plain(*ops, k, bc, cap, band, counts)
     if dev.type != "cuda":
         raise ValueError(f"no band select for device {dev}")
     names = ("px", "py", "pz", "bs", "rs_rel", "run_len", "qpts",
-             "qrow_base", "lo_edge", "hi_edge")
-    for name, a in zip(names, ops):
-        if not a.is_contiguous():
+             "qrow_base", "lo_edge", "hi_edge", "counts")
+    for name, a in zip(names, ops + (counts,)):
+        if a is not None and not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     nb = bs.shape[0]
     s = nb * bc * cap
@@ -193,9 +215,10 @@ def knn_band_select(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(a.data_ptr() for a in ops), dists.data_ptr(),
-                 rows.data_ptr(), cover.data_ptr(), nb, px.shape[0], k, bc,
-                 cap, band, stream)
+        err = fn(*(a.data_ptr() for a in ops),
+                 None if counts is None else counts.data_ptr(),
+                 dists.data_ptr(), rows.data_ptr(), cover.data_ptr(), nb,
+                 px.shape[0], k, bc, cap, band, stream)
     if err != 0:
         raise RuntimeError(f"pct_band_select kernel launch failed: CUDA "
                            f"error {err}")

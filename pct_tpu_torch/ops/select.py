@@ -21,10 +21,11 @@ neighbors; the JAX package's list engine runs only where k·cand_cap ≤
 48,000, so k > 128 reaches a select only on a degenerate cloud whose
 27-cell windows hold fewer than ~3·k points (n < k, for example).
 
-On CUDA tensors the hand-written kernels run (``csrc/select_coords.cu``:
-one thread and one sorted list per query slot; ``csrc/select_rows.cu``:
-one warp per query slot, d² once, a radix select of the kth and a warp
-sort of the winners; built with nvcc at first use); on CPU tensors
+On CUDA tensors the hand-written kernels run (``csrc/select_coords.cu``
+and ``csrc/select_rows.cu``, one design in ``csrc/knn_warp.cuh``: one
+block per cell row stages the row, one warp per query slot computes d²
+once, radix-selects the kth and sorts the winners, and only the
+emitted outputs differ; built with nvcc at first use); on CPU tensors
 the plain PyTorch versions below, which do the same IEEE float32
 operations in the same order, so the two agree bit for bit on the card.
 """
@@ -39,9 +40,9 @@ import torch
 from pct_tpu_torch.ops import build
 
 MISSING_D2 = 3.0e38
-KMAX = 128          # coords: the list length; rows/pos: the keys a warp sorts
-MAX_QUERIES = 1024  # query slots of a cell row (one block a row; coords: a
-                    # thread a slot, rows/pos: warps take slots in turn)
+KMAX = 128          # the winner keys a warp sorts
+MAX_QUERIES = 1024  # query slots of a cell row (one block a row, its warps
+                    # take the slots in turn)
 _PLAIN_PAIRS = 1 << 24   # (rows × C × M) elements per plain-version chunk
 
 

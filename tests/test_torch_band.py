@@ -183,9 +183,10 @@ def test_band_select_matches_jax_kernel():
     setup = _setup("jitter")
     cells, cap = setup.probe_t[:2]
     band = default_band(BC, cap)
-    ops, _, ok_q, band_ok = band_operands(setup.gt, cells, setup.blocks, cap,
-                                          BC, band)
+    ops, _, counts, band_ok = band_operands(setup.gt, cells, setup.blocks,
+                                            cap, BC, band)
     assert band_ok.all()
+    ok_q = (torch.arange(cap) < counts[..., None]).reshape(-1)
     ops = _under_k_block(ops)
     dt, rt, ct = (a.numpy() for a in knn_band_select(
         *ops, k=K, bc=BC, cap=cap, band=band))
@@ -208,7 +209,39 @@ def test_band_select_matches_jax_kernel():
     assert found[:-q][ok_q.numpy()].all()                # real blocks full
 
 
-@pytest.mark.parametrize("case", ["band", "k", "queries"])
+def test_band_select_counts_fill_padding_slots(setup):
+    """``counts`` changes nothing on the computed slots and gives every
+    padding slot the missing-slot fill (sqrt(3e38), row bs[b, 0]) in all
+    k places, with its cover as computed: on the cloud's own counts (row
+    blocks with padding cells), with one cell cut to one point and one
+    made a padding cell."""
+    cells, cap = setup.probe_t[:2]
+    band = default_band(BC, cap)
+    ops, _, counts, _ = band_operands(setup.gt, cells, setup.blocks, cap,
+                                      BC, band)
+    slot = torch.arange(cap)
+    assert int(counts.sum()) == N
+    assert (counts == 0).any() and (counts > 1).any()
+    counts = counts.clone()
+    real = (counts > 1).nonzero()
+    counts[tuple(real[0])] = 1
+    counts[tuple(real[-1])] = 0
+    full = knn_band_select(*ops, k=K, bc=BC, cap=cap, band=band)
+    got = knn_band_select(*ops, k=K, bc=BC, cap=cap, band=band,
+                          counts=counts)
+    pad = (slot >= counts[..., None]).reshape(-1)
+    assert pad.any() and not pad.all()
+    for a, b in zip(got[:2], full[:2]):
+        assert torch.equal(a[~pad], b[~pad])
+    assert torch.equal(got[2], full[2])
+    assert (got[0][pad] == torch.sqrt(torch.tensor(3e38))).all()
+    bs0 = ops[3][:, 0].repeat_interleave(BC * cap)
+    assert torch.equal(got[1][pad], bs0[pad, None].expand(-1, K))
+    one = (counts == 1).reshape(-1).repeat_interleave(cap) & ~pad
+    assert one.sum() == (counts == 1).sum() and (got[0][one] < 1e18).all()
+
+
+@pytest.mark.parametrize("case", ["band", "k", "queries", "counts"])
 def test_band_limits_raise(case):
     pts = _cloud("jitter")
     gt = build_grid(torch.from_numpy(pts), N, torch.tensor(np.float32(0.2)))
@@ -224,6 +257,13 @@ def test_band_limits_raise(case):
         with pytest.raises(ValueError, match="at most 128"):
             knn_band_select(*ops, k=129, bc=BC, cap=cap,
                             band=default_band(BC, cap))
+    elif case == "counts":
+        nb = ops[3].shape[0]
+        for bad in (torch.zeros((nb, BC), dtype=torch.int64),
+                    torch.zeros((nb, BC + 1), dtype=torch.int32)):
+            with pytest.raises(ValueError, match="counts must be"):
+                knn_band_select(*ops, k=K, bc=BC, cap=cap,
+                                band=default_band(BC, cap), counts=bad)
     else:
         with pytest.raises(ValueError, match="query slots a block"):
             knn_band_select(*ops, k=K, bc=BC, cap=129, band=MAX_BAND)

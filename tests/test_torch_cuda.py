@@ -183,6 +183,51 @@ def test_select_ids_warp_design_cases(cuda, want, case):
                                          else torch.zeros_like(w_k))[~found])
 
 
+# the coords select on the same warp design: the streamed source at
+# M=6000, C = 1 and C = 1024, k = 128, rows with fewer than k usable
+# slots, all-invalid rows, lattice ties at the kth distance
+COORDS_CASES = {
+    "streamed_M6000_k20": (2, 16, 6000, 20, {}),
+    "streamed_M6000_k128_lattice": (2, 40, 6000, 128, {"lattice": True}),
+    "C1_k20": (16, 1, 232, 20, {}),
+    "C1024_k20": (2, 1024, 300, 20, {}),
+    "k128_M1064": (4, 64, 1064, 128, {}),
+    "under_k_k20": (8, 32, 232, 20, {"p_valid": 0.05}),
+    "all_invalid_k20": (6, 24, 232, 20, {"empty": True}),
+    "lattice_k20": (16, 16, 232, 20, {"lattice": True}),
+    "lattice_k100": (8, 48, 1064, 100, {"lattice": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COORDS_CASES))
+def test_select_coords_warp_design_cases(cuda, case):
+    """Bit for bit against the plain version, and the coordinates are the
+    candidates at the positions kernel's winners (slot 0 where missing)."""
+    T, C, M, k, kw = COORDS_CASES[case]
+    ops = [torch.from_numpy(a).to(cuda)
+           for a in _ids_tile(T * C + M + k, T, C, M, **kw)]
+    before = knn_select_coords.launches
+    d_k, n_k = knn_select_coords(*ops, k)
+    torch.cuda.synchronize()
+    assert knn_select_coords.launches == before + 1
+    d_p, n_p = select_coords_plain(*ops, k)
+    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+    assert torch.equal(n_k.view(torch.int32), n_p.view(torch.int32))
+    d_pos, pos = knn_select(*ops, k)
+    assert torch.equal(d_pos.view(torch.int32), d_k.view(torch.int32))
+    picked = torch.gather(ops[1], 1, pos.reshape(T, C * k, 1).long()
+                          .expand(-1, -1, 3)).reshape(T, C, k, 3)
+    assert torch.equal(n_k.view(torch.int32), picked.view(torch.int32))
+    found = d_k < 1e18
+    if kw.get("lattice"):          # ties straddle the kth distance
+        kth = d_k[..., k - 1:k]
+        assert ((d_k[..., :-1] == kth) & found[..., :-1]).any()
+    if "p_valid" in kw or kw.get("empty"):
+        assert (~found[..., -1]).any()
+        slot0 = ops[1][:, None, None, 0, :].expand_as(n_k)
+        assert torch.equal(n_k[~found], slot0[~found])
+
+
 def _moment_tile(seed, T, C, M, lattice=False, p_valid=0.9, empty=False):
     """Random tile; ``lattice`` puts every point on a dyadic lattice
     (exact d², many exact ties at the kth distance); ``empty`` makes
@@ -308,13 +353,24 @@ def test_tie_order_same_on_card(cuda, case):
     torch.testing.assert_close(d_g.cpu(), d_c, rtol=2.4e-7, atol=0)
 
 
-def _band_tile(seed, nb, bc, cap, band, lattice=False, sparse=False):
+# csrc/band_select.cu's staging tile (rows a block stages) and a warp's
+# cached d2 bits (candidates a query); past them the kernel streams
+BAND_TILE = 2048
+BAND_BITS = 512
+
+
+def _band_tile(seed, nb, bc, cap, band, lattice=False, sparse=False,
+               runs="random"):
     """Random band-select operands: overlapping bands, runs of random
     offset and length (some empty), the last cell of every other block a
     padding cell (no runs), each cell's first query slots on rows of its
     centre run (self hits), edges at ±1e30 on some axes. ``lattice``
     puts every point on a 1/4 lattice (exact distance ties); ``sparse``
-    cuts every run to at most one row (fewer than k candidates)."""
+    cuts every run to at most one row (fewer than k candidates).
+    ``runs="wide"`` scatters short runs (<= 24 rows) over the whole band,
+    so a block's run hulls exceed the staging tile while each query's
+    candidates fit its bit slice; ``runs="long"`` gives every cell runs
+    over the whole band, so its queries exceed the bit slice."""
     rng = np.random.default_rng(seed)
     npad = nb * band // 2 + band
     if lattice:
@@ -323,8 +379,15 @@ def _band_tile(seed, nb, bc, cap, band, lattice=False, sparse=False):
         pl = rng.standard_normal((3, npad)).astype(np.float32)
     bs = rng.integers(0, npad - band // 2, (nb, 9)).astype(np.int32)
     rs_rel = rng.integers(0, band, (nb, bc, 9)).astype(np.int32)
-    run_len = rng.integers(0, band - rs_rel + 1).astype(np.int32)
-    run_len[rng.random((nb, bc, 9)) < 0.2] = 0
+    if runs == "wide":
+        run_len = rng.integers(1, 25, (nb, bc, 9)).astype(np.int32)
+        run_len = np.minimum(run_len, band - rs_rel)
+    elif runs == "long":
+        rs_rel[:] = 0
+        run_len = np.full((nb, bc, 9), band, np.int32)
+    else:
+        run_len = rng.integers(0, band - rs_rel + 1).astype(np.int32)
+        run_len[rng.random((nb, bc, 9)) < 0.2] = 0
     if sparse:
         run_len = np.minimum(run_len, 1)
     run_len[::2, -1] = 0
@@ -340,27 +403,63 @@ def _band_tile(seed, nb, bc, cap, band, lattice=False, sparse=False):
             qbase.astype(np.int32), lo, hi)
 
 
-@pytest.mark.parametrize("nb,bc,cap,band,k,lattice,sparse", [
-    (16, 8, 4, 128, 1, False, False),      # k = 1, 32 query slots
-    (12, 8, 16, 128, 10, False, False),    # the CPU test's k
-    (10, 8, 32, 384, 20, False, False),    # the 1M torus's shape at k=20
-    (6, 4, 64, 1024, 64, False, False),    # 110,592 B of shared memory
-    (4, 8, 16, 1024, 100, False, False),   # the 128-entry list
-    (4, 2, 37, 256, 128, False, False),    # the largest k, Q % 32 != 0
-    (2, 8, 128, 1024, 20, False, False),   # 1024 query slots a block
-    (8, 8, 16, 256, 20, True, False),      # exact distance ties
-    (8, 8, 8, 128, 20, False, True),       # fewer than k candidates
-])
-def test_band_select_kernel_bit_identical(cuda, nb, bc, cap, band, k,
-                                          lattice, sparse):
+def _band_counts(seed, nb, bc, cap):
+    """(nb, bc) int32 points a cell: random in [0, cap], the first cell of
+    every block holding one point, a padding cell (0) in every block."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, cap + 1, (nb, bc)).astype(np.int32)
+    counts[:, 0] = 1
+    counts[:, -1] = 0
+    return counts
+
+
+def _band_paths(ops, counts, bc, cap, band):
+    """(blocks past the tile, computed query slots past the bit slice),
+    as the kernel decides them."""
+    rs, rl = ops[4].long(), ops[5].long()
+    nb = rs.shape[0]
+    cnt = (torch.full((nb, bc), cap, device=rs.device) if counts is None
+           else counts.long().clamp(0, cap))
+    p0 = rs.clamp(min=0)
+    p1 = torch.minimum(rs + rl, torch.full_like(rs, band))
+    ne = (p1 > p0) & (cnt[..., None] > 0)
+    hull = (torch.where(ne, p1, 0).max(1).values
+            - torch.where(ne, p0, band).min(1).values).clamp(min=0).sum(-1)
+    m = (p1 - p0).clamp(min=0).sum(-1)
+    return int((hull > BAND_TILE).sum()), int(((m > BAND_BITS) * cnt).sum())
+
+
+BAND_CASES = {
+    "k1_q32": (16, 8, 4, 128, 1, {}),
+    "k10": (12, 8, 16, 128, 10, {}),
+    "torus_shape_k20": (10, 8, 32, 384, 20, {}),   # the 1M torus at k=20
+    "band1024_k64": (6, 4, 64, 1024, 64, {}),
+    "k100": (4, 8, 16, 1024, 100, {}),
+    "k128_q_odd": (4, 2, 37, 256, 128, {}),        # Q % 32 != 0
+    "q1024_k20": (2, 8, 128, 1024, 20, {}),        # 1024 query slots a block
+    "lattice_k20": (8, 8, 16, 256, 20, {"lattice": True}),
+    "under_k_k20": (8, 8, 8, 128, 20, {"sparse": True}),
+    "under_k_k128": (6, 8, 8, 256, 128, {"sparse": True}),
+    "hull_past_tile_k20": (6, 8, 16, 1024, 20, {"runs": "wide"}),
+    "query_past_bits_k20": (4, 8, 8, 200, 20, {"runs": "long"}),
+}
+
+
+@pytest.mark.parametrize("mode", ["all_slots", "counts"])
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_band_select_kernel_bit_identical(cuda, case, mode):
+    nb, bc, cap, band, k, kw = BAND_CASES[case]
+    seed = nb * cap + band + k
     ops = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
-           for a in _band_tile(nb * cap + band + k, nb, bc, cap, band,
-                               lattice, sparse)]
+           for a in _band_tile(seed, nb, bc, cap, band, **kw)]
+    counts = (None if mode == "all_slots" else
+              torch.from_numpy(_band_counts(seed, nb, bc, cap)).to(cuda))
     before = knn_band_select.launches
-    d_k, r_k, c_k = knn_band_select(*ops, k=k, bc=bc, cap=cap, band=band)
+    d_k, r_k, c_k = knn_band_select(*ops, k=k, bc=bc, cap=cap, band=band,
+                                    counts=counts)
     torch.cuda.synchronize()
     assert knn_band_select.launches == before + 1
-    d_p, r_p, c_p = band_select_plain(*ops, k, bc, cap, band)
+    d_p, r_p, c_p = band_select_plain(*ops, k, bc, cap, band, counts)
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
     assert torch.equal(r_k, r_p)
     assert torch.equal(c_k.view(torch.int32), c_p.view(torch.int32))
@@ -368,7 +467,16 @@ def test_band_select_kernel_bit_identical(cuda, nb, bc, cap, band, k,
     assert missing.any()                    # the padding cells at least
     bs0 = ops[3][:, 0].repeat_interleave(bc * cap)[:, None].expand_as(r_k)
     assert torch.equal(r_k[missing], bs0[missing])
-    if sparse:
+    if counts is not None:                  # padding slots: all k missing
+        slot = torch.arange(cap, device=cuda)
+        pad = (slot >= counts[..., None]).reshape(-1)
+        assert missing[pad].all()
+    past_tile, past_bits = _band_paths(ops, counts, bc, cap, band)
+    if kw.get("runs") == "wide":
+        assert past_tile > 0 and past_bits == 0
+    if kw.get("runs") == "long":
+        assert past_tile == 0 and past_bits > 0
+    if kw.get("sparse"):
         assert missing[:, -1].all()
-    if lattice:
+    if kw.get("lattice"):
         assert (d_k[:, 1:] == d_k[:, :-1])[~missing[:, 1:]].any()

@@ -12,7 +12,12 @@ import pytest
 import torch
 
 from pct_tpu.ops.pallas_select import knn_select_coords as jax_select_coords
-from pct_tpu_torch.ops.select import knn_select_coords
+from pct_tpu_torch.ops.select import (
+    knn_select_coords,
+    select_coords_plain,
+    select_pos_plain,
+    select_rows_plain,
+)
 
 
 def _random_tile(seed, T=6, C=8, M=48):
@@ -116,3 +121,26 @@ def test_select_wrapper_checks_operands():
         knn_select_coords(q, p, cand.long(), qrow, valid, 5)
     with pytest.raises(ValueError, match="outside"):
         knn_select_coords(q, p, cand, qrow, valid, 129)
+
+
+@pytest.mark.parametrize("make,k", [
+    (_random_tile, 20), (_duplicate_tile, 7), (_sparse_tile, 6)],
+    ids=["random_k20", "duplicates", "fewer_than_k"])
+def test_select_coords_plain_is_the_warp_selects(make, k):
+    """The coords select is the rows/positions select with another
+    emitter (one kernel design in csrc/knn_warp.cuh): the same
+    distances, and the coordinates of the candidates at the winner
+    positions, slot 0's where a winner is missing."""
+    q, p, cand, qrow, valid = (torch.from_numpy(a) for a in make(5))
+    d_c, n_c = select_coords_plain(q, p, cand, qrow, valid, k)
+    d_p, pos = select_pos_plain(q, p, cand, qrow, valid, k)
+    d_r, rows = select_rows_plain(q, p, cand, qrow, valid, k)
+    assert torch.equal(d_c, d_p) and torch.equal(d_c, d_r)
+    T, C = q.shape[:2]
+    picked = torch.gather(p, 1, pos.reshape(T, C * k, 1).long()
+                          .expand(-1, -1, 3)).reshape(T, C, k, 3)
+    assert torch.equal(n_c, picked)
+    assert torch.equal(rows, torch.gather(cand, 1, pos.reshape(T, -1).long())
+                       .reshape(T, C, k))
+    miss = d_c > 1e18
+    assert torch.equal(pos[miss], torch.zeros_like(pos[miss]))

@@ -57,8 +57,26 @@ without printing its result line:
    f. the neighbor study at its defaults, and ``pointwise_curvature``
       with an all-True mask (K as unmasked) and with the farthest half
       of every row masked (no NaN);
-6. timings, each printed beside the card's name and power limit;
-7. the kernel table (one JSON line) and the result line.
+6. timings, each printed beside the card's name and power limit (after
+   phase 7, with its own);
+7. the device half of the mesh path:
+   a. ``estimate_and_orient_normals(cloud, k=50)`` on the same cloud
+      (hierarchical): on every bucket of the layouts ``plan_normals``
+      gives it, the moments kernel at k=50 (split probe) as in 4a, the
+      rows kernel at kv=12 (voters) and at kc=16 (the one-bucket coarse
+      graph) bit for bit; launches counted at each k against the plan's
+      buckets, sign agreement with the analytic tube normal, unit
+      length, no NaN;
+   b. ``fast_curvature(k=20)`` on the vertices of a structured 1000 x
+      1000 torus mesh (1M vertices, 2M faces): the coords kernel
+      bit-identical to its plain version on every bucket, launches,
+      exact, NaN and K error as in 3b;
+   c. on that mesh: ``taubin_smooth`` x10 on the card against the CPU,
+      ``mesh_energies`` with 7b's K and H against the analytic torus,
+      ``voxel_downsample`` of the 1M cloud in both modes against the
+      CPU; each timed;
+8. the kernel table (one JSON line; each kernel's ``mesh_path`` lists
+   its records at phase 7's shapes) and the result line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -107,6 +125,9 @@ BAND_CHUNK_BLOCKS = 512          # row blocks a plain-version call
 # fitted band 1024 and the default band 384 (PERF.md, NVIDIA H100 80GB
 # HBM3, 700 W)
 BAND_FIRST_DESIGN_MS = {1024: 37.771, 384: 19.381}
+K_NORMALS = 50                   # estimate_and_orient_normals' default k
+MESH_SIDE = 1000                 # (u, v) lattice of the structured torus mesh
+VOXEL = 0.02                     # voxel edge of the downsample check
 
 
 def log(*a):
@@ -322,17 +343,24 @@ def moments_vs_plain(cellknn, grid, cells, spec, k):
     return per_bucket, max_err, max_ratio
 
 
-def drive(call, label, counters, want_launches, warm=3):
+def drive(call, label, counters, want_launches, warm=3, want_by_k=None):
     """A main path: counts set to 0, one cold and ``warm`` warm calls of
     ``call()``, counts read. ``want_launches`` maps each counter's name
-    to the launches one call must add."""
+    to the launches one call must add; ``want_by_k`` maps a select
+    counter's name to {k: launches one call must add at that k}. The
+    selects' per-k counts (``launches_by_k``) then hold this run's."""
     import torch
 
+    want_by_k = want_by_k or {}
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_k"):
+            fn.launches_by_k.clear()
     walls = []
     for i in range(1 + warm):
         before = {name: fn.launches for name, fn in counters.items()}
+        before_k = {name: dict(counters[name].launches_by_k)
+                    for name in want_by_k}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = call()
@@ -343,6 +371,12 @@ def drive(call, label, counters, want_launches, warm=3):
             check(got == want_launches[name],
                   f"{label} call {i}: {name} launched {got} times, want "
                   f"{want_launches[name]}")
+        for name, want in want_by_k.items():
+            now = counters[name].launches_by_k
+            got = {kk: c - before_k[name].get(kk, 0) for kk, c in now.items()
+                   if c != before_k[name].get(kk, 0)}
+            check(got == want, f"{label} call {i}: {name} launches by k "
+                  f"{got}, want {want}")
     launches = {name: fn.launches for name, fn in counters.items()}
     return res, walls, launches
 
@@ -565,12 +599,24 @@ def library_total(per_bucket):
     return None if None in libs else sum(libs)
 
 
-def kernel_row(name, source, replaces, launches, max_err, per_bucket,
-               flops=None):
+def call_numbers(per_bucket, flops=None):
+    """Per call of the entry point: the buckets' ms, plain ms and
+    library ms summed, and the bound of the work they do together."""
     if flops is None:
         flops = sum(r["pairs"] for r in per_bucket) * PAIR_FLOPS
     t_ops = flops / FP32_PEAK
     t_bytes = sum(r["bytes"] for r in per_bucket) / HBM_BYTES_PER_S
+    return {
+        "ms": sum(r["ms"] for r in per_bucket),
+        "plain_ms": sum(r["plain_ms"] for r in per_bucket),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_total(per_bucket),
+    }
+
+
+def kernel_row(name, source, replaces, launches, max_err, per_bucket,
+               flops=None):
     return {
         "name": name,
         "route": "cuda",
@@ -578,11 +624,7 @@ def kernel_row(name, source, replaces, launches, max_err, per_bucket,
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": sum(r["ms"] for r in per_bucket),
-        "plain_ms": sum(r["plain_ms"] for r in per_bucket),
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_total(per_bucket),
+        **call_numbers(per_bucket, flops),
     }
 
 
@@ -840,6 +882,276 @@ def study_phase(label, cloud):
     check(nan == 0, "half-masked pointwise_curvature: no NaN")
 
 
+def tube_normal_agreement(nrm, pts):
+    """Fraction of rows whose normal points away from the torus' center
+    circle (the JAX test's rule: > 0.999 or < 0.001 is consistent)."""
+    import numpy as np
+
+    rho = np.linalg.norm(pts[:, :2], axis=1, keepdims=True)
+    c = np.concatenate([pts[:, :2] / np.maximum(rho, 1e-9),
+                        np.zeros((len(pts), 1), pts.dtype)], axis=1)
+    ana = pts - 0.75 * rho.max() * c
+    return float((np.sum(nrm * ana, axis=1) > 0).mean())
+
+
+def normals_phase(label, cloud, pts, counters, none):
+    """Phase 7a: ``estimate_and_orient_normals(cloud, k=50)``, its kernels
+    held against their plain versions on every bucket of the layouts
+    ``plan_normals`` gives it, then driven."""
+    import numpy as np
+
+    import pct_tpu_torch.mesh.normals as nm
+    from pct_tpu_torch.mesh import estimate_and_orient_normals
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.ops.select import knn_select_rows, select_rows_plain
+    from pct_tpu_torch.pipeline.fused import SPLIT_TO
+
+    n, ncap = cloud.num_points, cloud.capacity
+    rows = {"select_rows": (knn_select_rows, select_rows_plain)}
+    plan = nm.plan_normals(cloud.points, n, K_NORMALS)
+    k, kv, kc = plan.k, plan.kv, plan.kc
+    check(plan.hierarchical and plan.moments is not None,
+          "the 1M cloud takes the hierarchical path and the moments route")
+    check(kv != kc, "voters and coarse graph select at different k")
+    spec_m, mc_m, factor = plan.moments
+    spec_v, mc_v = plan.rows
+    spec_c, mc_c = plan.coarse
+    log(f"normals k={k}: capacity {ncap}, stride {plan.stride}, kc {kc}, "
+        f"{plan.sweeps} fine sweeps; moments split factor {factor}, "
+        f"{len(spec_m)} buckets {[tuple(s) for s in spec_m]}; voters kv={kv}: "
+        f"{len(spec_v)} buckets {[tuple(s) for s in spec_v]}; coarse graph: "
+        f"{plan.coarse_num_points} points, {[tuple(s) for s in spec_c]}")
+    cells = cellknn.compact_cells(plan.grid, mc_m)
+    if factor > 1:
+        cells = cellknn.split_cells(cells, ncap, SPLIT_TO, factor)
+    mom, mom_err, mom_ratio = moments_vs_plain(cellknn, plan.grid, cells,
+                                               spec_m, k)
+    del cells
+    rows_v, err_v = ids_vs_plain(cellknn, plan.grid, cellknn.compact_cells(
+        plan.grid, mc_v), spec_v, kv, rows, f"rows kv={kv} (voters)")
+    rows_c, err_c = ids_vs_plain(
+        cellknn, plan.coarse_grid, cellknn.compact_cells(plan.coarse_grid,
+                                                         mc_c),
+        spec_c, kc, rows, f"rows kc={kc} (coarse graph)")
+    del plan
+
+    nrm, walls, launches = drive(
+        lambda: estimate_and_orient_normals(cloud, k=K_NORMALS),
+        f"estimate_and_orient_normals k={k}", counters,
+        {**none, "moments": len(spec_m), "select_rows": len(spec_v) + 1},
+        want_by_k={"select_rows": {kv: len(spec_v), kc: 1}})
+    by_k = dict(counters["select_rows"].launches_by_k)
+    got = nrm[:n].cpu().numpy()
+    agree = tube_normal_agreement(got, pts)
+    norm_err = float(np.abs(np.linalg.norm(got, axis=1) - 1).max())
+    nan = int(np.isnan(got).sum())
+    calls = len(walls)
+    log(f"normals k={k}: sign agreement with the analytic tube normal "
+        f"{agree:.6f}, max |norm - 1| {norm_err:.3g}, {nan} NaN; launches "
+        f"in the driven run ({calls} calls): moments {launches['moments']}, "
+        f"select_rows at kv={kv} {by_k[kv]}, at kc={kc} {by_k[kc]}")
+    check(tuple(nrm.shape) == (ncap, 3), "normals shape")
+    check(agree > 0.999 or agree < 0.001, "normals globally consistent")
+    check(norm_err <= 1e-5, "unit normals")
+    check(nan == 0, "no NaN in the normals")
+    normals_stage_times(label, cloud, K_NORMALS)
+    wall = statistics.median(walls[1:])
+    log(f"[{label}] estimate_and_orient_normals k={k}, 1M torus: warm wall "
+        f"{wall:.4f} s/call (median of {len(walls) - 1}; cold first call "
+        f"{walls[0]:.3f} s)")
+    return dict(
+        moments=dict(buckets=mom, max_err=mom_err, ratio=mom_ratio,
+                     launches=launches["moments"], calls=calls,
+                     label=f"k={k} (normals, split to {SPLIT_TO})"),
+        rows_v=dict(buckets=rows_v["select_rows"], max_err=err_v,
+                    launches=by_k[kv], calls=calls,
+                    label=f"kv={kv} (normals voters)"),
+        rows_c=dict(buckets=rows_c["select_rows"], max_err=err_c,
+                    launches=by_k[kc], calls=calls,
+                    label=f"kc={kc} (normals coarse graph)"),
+        wall=wall, walls=walls, agree=agree)
+
+
+def normals_stage_times(label, cloud, k):
+    """Host-clock stages of one ``estimate_and_orient_normals`` call,
+    synchronized after each, through the steps its body runs: the plan
+    (cell size, grids, bucket probes), the raw normals and voter kNN,
+    the orientation (coarse graph, coarse and fine wavefronts,
+    consensus)."""
+    import torch
+
+    import pct_tpu_torch.mesh.normals as nm
+
+    def stage(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    n, pts = cloud.num_points, cloud.points
+    for rep in range(3):
+        plan, t_plan = stage(lambda: nm.plan_normals(pts, n, k))
+        (raw, idx_o), t_nb = stage(
+            lambda: nm.raw_normals_and_voters(plan, pts))
+        _, t_orient = stage(lambda: nm.orient_planned(plan, pts, raw, idx_o))
+        log(f"[{label}] estimate_and_orient_normals k={k} stages rep {rep}: "
+            f"plan (cell size, grids, bucket probes) {t_plan:.1f} ms, moments "
+            f"raw normals + voter kNN {t_nb:.1f} ms, orientation "
+            f"{t_orient:.1f} ms")
+        del plan, raw, idx_o
+
+
+def vertex_curvature_phase(label, verts, counters, none):
+    """Phase 7b: ``fast_curvature`` at k=20 on the structured torus mesh's
+    vertices (the vertex fits of the mesh energies), its coords kernel
+    held against its plain version on every bucket, then driven."""
+    import torch
+
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+    from pct_tpu_torch.pipeline import fast_curvature, plan_engine
+
+    k = K_LIST
+    cloud = from_numpy(verts, device=torch.device("cuda"))
+    n = cloud.num_points
+    grid = build_grid(cloud.points, n, estimate_cell_size(cloud.points, n, k))
+    engine, spec, mc, _ = plan_engine(grid, k)
+    check(engine == "list", f"mesh vertices k={k} run the list engine")
+    log(f"vertex curvature k={k}, {n} mesh vertices: {len(spec)} buckets "
+        f"{[tuple(s) for s in spec]}")
+    per, err = select_vs_plain(cellknn, grid, cellknn.compact_cells(grid, mc),
+                               spec, k)
+    del grid
+    res, walls, launches = drive(
+        lambda: fast_curvature(cloud, k), f"fast_curvature k={k} mesh vertices",
+        counters, {**none, "select_coords": len(spec)},
+        want_by_k={"select_coords": {k: len(spec)}})
+    accuracy(res, cloud, verts, k, 1.5e-3)
+    wall = statistics.median(walls[1:])
+    log(f"[{label}] fast_curvature k={k}, 1000x1000 torus mesh vertices: warm "
+        f"wall {wall:.4f} s/call (median of {len(walls) - 1}; cold first call "
+        f"{walls[0]:.3f} s); coords kernel "
+        f"{sum(r['ms'] for r in per):.3f} ms/call over {len(spec)} buckets")
+    rec = dict(buckets=per, max_err=err, launches=launches["select_coords"],
+               calls=len(walls), wall=wall, walls=walls,
+               label=f"k={k} (torus mesh vertices)")
+    return rec, res
+
+
+def torus_mesh(side):
+    """Structured torus mesh, R=1, r=1/3: a side x side (u, v) lattice,
+    two triangles a lattice cell, every edge shared by two faces."""
+    import numpy as np
+
+    t = 2 * np.pi * np.arange(side) / side
+    U, V = np.meshgrid(t, t, indexing="ij")
+    rho = 1.0 + np.cos(V) / 3.0
+    verts = np.stack([rho * np.cos(U), rho * np.sin(U), np.sin(V) / 3.0],
+                     -1).reshape(-1, 3).astype(np.float32)
+    i, j = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    a = i * side + j
+    b = ((i + 1) % side) * side + j
+    c = ((i + 1) % side) * side + (j + 1) % side
+    d = i * side + (j + 1) % side
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)])
+    return verts, faces.astype(np.int32)
+
+
+def mesh_ops_phase(label, cloud, verts, faces, vres):
+    """Phase 7c: Taubin smoothing and energies on the structured torus
+    mesh (with 7b's vertex curvatures ``vres``) and voxel downsampling of
+    the 1M cloud, on the card against the CPU and the analytic torus."""
+    import numpy as np
+    import torch
+
+    from pct_tpu_torch.mesh import mesh_energies, taubin_smooth, voxel_downsample
+    from pct_tpu_torch.shapes import analytic_area, analytic_energies
+
+    dev = cloud.points.device
+    v_c, f_c = torch.from_numpy(verts), torch.from_numpy(faces)
+    v_g, f_g = v_c.to(dev), f_c.to(dev)
+    diag = float(np.linalg.norm(verts.max(0) - verts.min(0)))
+    got = taubin_smooth(v_g, f_g)
+    t0 = time.perf_counter()
+    want = taubin_smooth(v_c, f_c)
+    cpu_s = time.perf_counter() - t0
+    d = float((got.cpu() - want).abs().max())
+    log(f"taubin_smooth x10, {len(verts)} vertices, {len(faces)} faces: card "
+        f"vs CPU max |d| {d:.3e} (bbox diagonal {diag:.4f}, limit "
+        f"{1e-5 * diag:.3e})")
+    check(d <= 1e-5 * diag, "taubin_smooth on the card = the CPU run")
+    smooth_ms = event_ms(lambda: taubin_smooth(v_g, f_g), 3)
+    del got, want
+
+    nv = len(verts)
+    K, H = vres.curv.K[:nv], vres.curv.H[:nv]
+    e = mesh_energies(v_g, f_g, K, H)
+    bend, stretch, area = (float(x) for x in e)
+    a_ref = analytic_area("torus")
+    b_ref, s_ref = analytic_energies("torus")
+    log(f"mesh_energies on the torus mesh with fast_curvature(k={K_LIST}) "
+        f"K/H: area {area:.6f} vs {a_ref:.6f} "
+        f"({abs(area / a_ref - 1):.4%}), bending {bend:.6f} vs {b_ref:.6f} "
+        f"({abs(bend / b_ref - 1):.4%}), stretching {stretch:.6f} vs {s_ref}; "
+        f"vertex exact {float(vres.exact[:nv].float().mean()):.6f}")
+    check(abs(area / a_ref - 1) <= 5e-3, "area within 0.5% of analytic")
+    check(abs(bend / b_ref - 1) <= 1e-2, "bending within 1% of analytic")
+    check(abs(stretch) <= 0.1, "|stretching| <= 0.1")
+    energies_ms = event_ms(lambda: mesh_energies(v_g, f_g, K, H), 5)
+    del K, H
+
+    n = cloud.num_points
+    p_c = cloud.points.cpu()
+    ds_ms = {}
+    for mode in ("first", "centroid"):
+        out_g, kept_g = voxel_downsample(cloud.points, n, VOXEL, mode=mode)
+        out_c, kept_c = voxel_downsample(p_c, n, VOXEL, mode=mode)
+        kept = int(kept_g)
+        rows = out_g.cpu()
+        diff = float((rows[:kept] - out_c[:kept]).abs().max())
+        log(f"voxel_downsample {mode} (voxel {VOXEL}): {kept} of {n} kept "
+            f"(CPU {int(kept_c)}), max |d| of the kept rows {diff:.3g}")
+        check(kept == int(kept_c) and 0 < kept < n,
+              f"voxel_downsample {mode}: num_kept = the CPU run's")
+        if mode == "first":
+            check(torch.equal(rows, out_c),
+                  "voxel_downsample first: rows = the CPU run's")
+        else:
+            # the voxel sums are float atomics on the card
+            check(diff <= 1e-6 * float(p_c[:n].abs().max()),
+                  "voxel_downsample centroid: rows within 1e-6 of the CPU's")
+            check(bool((rows[kept:] == out_c[kept:]).all()),
+                  "voxel_downsample centroid: padding rows")
+        ds_ms[mode] = event_ms(
+            lambda mode=mode: voxel_downsample(cloud.points, n, VOXEL,
+                                               mode=mode), 3)
+    log(f"[{label}] mesh operations, 1000x1000 torus mesh / 1M torus cloud "
+        f"(CUDA events, median of 3-5): taubin_smooth x10 {smooth_ms:.3f} ms "
+        f"(CPU {cpu_s:.3f} s), mesh_energies {energies_ms:.3f} ms, "
+        f"voxel_downsample first {ds_ms['first']:.3f} ms, centroid "
+        f"{ds_ms['centroid']:.3f} ms")
+
+
+def mesh_record(rec, flops=None):
+    """A kernel's record at one of phase 7's shapes, per call of the
+    driven entry point, with its buckets."""
+    return {
+        "shape": rec["label"],
+        "launches": rec["launches"],
+        "launches_per_call": rec["launches"] // rec["calls"],
+        "max_abs_err": rec["max_err"],
+        **call_numbers(rec["buckets"], flops),
+        "buckets": [dict(C=r["capacity"], M=r["M"], cells=r["cells"],
+                         ms=r["ms"], plain_ms=r["plain_ms"],
+                         bound_ms=r["bound_ms"],
+                         library_ms=r.get("library_ms"))
+                    for r in rec["buckets"]],
+    }
+
+
 def main():
     import torch
 
@@ -1024,6 +1336,13 @@ def main():
     band_row = band_phase(label, cloud, counters, none)
     study_phase(label, cloud)
 
+    # --- 7. the device half of the mesh path ---
+    mesh_normals = normals_phase(label, cloud, pts, counters, none)
+    verts, faces = torus_mesh(MESH_SIDE)
+    mesh_vertex, vres = vertex_curvature_phase(label, verts, counters, none)
+    mesh_ops_phase(label, cloud, verts, faces, vres)
+    del vres
+
     # --- 6. numbers ---
     for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
                         (f"fast_curvature k={K_MOM}", walls100),
@@ -1100,8 +1419,32 @@ def main():
     log("select_pos: no entry point of either package selects positions "
         "(the JAX package's only caller is _tile_select(want='pos')), so its "
         "main-path launches are 0; it is held to its plain version above")
+    # the mesh path's shapes (phase 7), per call of its entry point
+    mesh = {r["name"]: r.setdefault("mesh_path", []) for r in rows}
+    mesh["moments"].append(mesh_record(
+        mesh_normals["moments"],
+        sum(r["pairs"] * PAIR_FLOPS + r["members"] * MEMBER_FLOPS
+            for r in mesh_normals["moments"]["buckets"])))
+    mesh["moments"][-1]["max_err_ratio"] = mesh_normals["moments"]["ratio"]
+    for key in ("rows_v", "rows_c"):
+        mesh["select_rows"].append(mesh_record(mesh_normals[key]))
+    mesh["select_coords"].append(mesh_record(mesh_vertex))
+    for name, recs in mesh.items():
+        for r in recs:
+            lib = ("" if r["library_ms"] is None else
+                   f", library yardstick (partial) {r['library_ms']:.3f} ms")
+            log(f"[{label}] {name} at {r['shape']}: {r['ms']:.3f} ms/call "
+                f"({r['launches_per_call']} launches/call, {r['launches']} in "
+                f"the driven run), plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
+    for name, wall in (("estimate_and_orient_normals k=50",
+                        mesh_normals["wall"]),
+                       (f"fast_curvature k={K_LIST} on the mesh vertices",
+                        mesh_vertex["wall"])):
+        log(f"[{label}] {name}, 1M torus: warm wall {wall:.4f} s/call, "
+            f"{N_POINTS / wall:.0f} points/s")
 
-    # --- 7. result ---
+    # --- 8. result ---
     log(f"kernels: {[r['name'] for r in rows]}")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 The JAX package ``pct_tpu`` stays the reference; this package mirrors its
 sub-package layout (``core``, ``neighbors``, ``ops``, ``fit``,
-``curvature``, ``pipeline``, ``shapes``) so each module's counterpart is
-easy to find. It imports ``torch`` and ``numpy`` only.
+``curvature``, ``pipeline``, ``mesh``, ``shapes``) so each module's
+counterpart is easy to find. It imports ``torch`` and ``numpy`` only.
 
 Ported so far:
 
@@ -18,7 +18,13 @@ Ported so far:
   ``ball_grid``), which runs the rows select kernel
   (``ops.select.knn_select_rows``, ``csrc/select_rows.cu``, which also
   holds the positions kernel of ``ops.select.knn_select``);
-- the staged ``pipeline.curvature_pipeline``.
+- the staged ``pipeline.curvature_pipeline``;
+- the device half of the mesh module: ``mesh.estimate_and_orient_normals``
+  (raw normals from the moments kernel at k >= 32 or the rows kernel
+  below, voters and the hierarchical coarse graph from the rows kernel),
+  ``mesh.taubin_smooth``, ``mesh.mesh_energies`` with the vertex
+  curvatures, and ``mesh.voxel_downsample``;
+- the analytic shapes and oracles of ``shapes`` (own numpy copies).
 
 The kernels are hand-written CUDA C++ for ``sm_90a``, built with nvcc at
 first use. Entry points run on ``cuda`` unless the caller passes

@@ -2,6 +2,7 @@ from pct_tpu_torch.neighbors.bruteforce import (  # noqa: F401
     knn_bruteforce,
     knn_cloud,
     mean_nn_distance,
+    sampled_nn_distances,
 )
 from pct_tpu_torch.neighbors.grid import (  # noqa: F401
     GridIndex,

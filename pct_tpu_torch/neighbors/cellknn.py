@@ -715,17 +715,26 @@ def knn_cellwise(grid: GridIndex, cells: CellTable, k: int,
     return knn_cellwise_bucketed(grid, cells, k, spec, original_ids, lean)
 
 
-def knn_all_points(grid: GridIndex, k: int, capacity: int | None = None,
-                   max_cells: int | None = None) -> NeighborResult:
-    """Cell-centric self-kNN for every point of the grid (sorted order),
-    one bucket of conservative capacity (2.5k + 16, 8-rounded)."""
-    n = grid.sorted_points.shape[0]
+def all_points_spec(n: int, k: int, capacity: int | None = None,
+                    max_cells: int | None = None):
+    """``knn_all_points``' layout for n grid rows: (spec, max_cells) of
+    its one bucket, of conservative capacity (2.5k + 16, 8-rounded) and
+    27·capacity candidate slots a cell."""
     if capacity is None:
         capacity = _round_up(int(2.5 * k) + 16, 8)
     if max_cells is None:
         max_cells = default_max_cells(n, k)
-    return knn_cellwise(grid, compact_cells(grid, max_cells), k,
-                        capacity=capacity)
+    return (BucketSpec(hi_key=1 << 30, capacity=capacity,
+                       cand_cap=27 * capacity, max_cells=max_cells),), max_cells
+
+
+def knn_all_points(grid: GridIndex, k: int, capacity: int | None = None,
+                   max_cells: int | None = None) -> NeighborResult:
+    """Cell-centric self-kNN for every point of the grid (sorted order),
+    in the one bucket of ``all_points_spec``."""
+    spec, mc = all_points_spec(grid.sorted_points.shape[0], k, capacity,
+                               max_cells)
+    return knn_cellwise_bucketed(grid, compact_cells(grid, mc), k, spec)
 
 
 def knn_all_points_auto(grid: GridIndex, k: int) -> NeighborResult:

@@ -168,7 +168,7 @@ def _select(wrapper, source: str, symbol: str, plain, win_dtype, win_tail,
             qpts, cpts, cand, qrow, valid, k: int):
     """Check the operands, then run ``plain`` on CPU tensors or launch
     ``symbol`` of ``csrc/<source>.cu`` on CUDA tensors, counting the
-    launch on ``wrapper.launches``."""
+    launch on ``wrapper.launches`` and on ``wrapper.launches_by_k[k]``."""
     _check(qpts, cpts, cand, qrow, valid, k)
     T, C, _ = qpts.shape
     M = cpts.shape[1]
@@ -194,6 +194,7 @@ def _select(wrapper, source: str, symbol: str, plain, win_dtype, win_tail,
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
+    wrapper.launches_by_k[k] = wrapper.launches_by_k.get(k, 0) + 1
     return dists, wins
 
 
@@ -239,6 +240,7 @@ def knn_select(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
                    qpts, cpts, cand, qrow, valid, k)
 
 
-knn_select_coords.launches = 0
-knn_select_rows.launches = 0
-knn_select.launches = 0
+for _wrapper in (knn_select_coords, knn_select_rows, knn_select):
+    _wrapper.launches = 0
+    _wrapper.launches_by_k = {}
+del _wrapper

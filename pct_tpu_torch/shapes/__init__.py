@@ -1,2 +1,14 @@
-from pct_tpu_torch.shapes.analytic import analytic_curvatures  # noqa: F401
-from pct_tpu_torch.shapes.generators import generate_shape  # noqa: F401
+from pct_tpu_torch.shapes.generators import (  # noqa: F401
+    SHAPES,
+    generate_shape,
+    generate_sphere,
+    generate_cylinder,
+    generate_torus,
+    generate_egg_carton,
+)
+from pct_tpu_torch.shapes.analytic import (  # noqa: F401
+    analytic_curvatures,
+    analytic_area,
+    analytic_energies,
+    density_for_target_points,
+)

@@ -2,8 +2,10 @@
 """Where the time of the port's main paths goes, on one NVIDIA card.
 
 Drives ``pct_tpu_torch.pipeline.fast_curvature(k)`` (``--path fast``),
-the library kNN ``pct_tpu_torch.neighbors.knn_cloud_grid(k)``
-(``--path knn``) or the band kNN
+the library kNN
+``pct_tpu_torch.neighbors.knn_cloud_grid(k)`` (``--path knn``), the mesh
+normals ``pct_tpu_torch.mesh.estimate_and_orient_normals(k)``
+(``--path normals``, hierarchical at this size) or the band kNN
 ``pct_tpu_torch.experimental.knn_cellwise_band`` (``--path band``: grid,
 row blocks of 8 cells and the fitted band built once, as chip_smoke.py
 builds them) on the 1M-point torus (padded to 1<<16, as chip_smoke.py
@@ -18,7 +20,8 @@ prints:
 chip_smoke.py prints the host-side stage times of the same call.
 
 Run from the root of a checkout:
-    python3 scripts/torch_trace_fast_curvature.py [--path fast|knn|band]
+    python3 scripts/torch_trace_fast_curvature.py
+        [--path fast|knn|normals|band]
         [--k K]
         [--trace-out PATH]
 ``--k`` is the neighbor count (default 20: the list engine; k >= 64
@@ -37,9 +40,10 @@ N_POINTS = 1_000_000
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("fast", "knn", "band"),
+    ap.add_argument("--path", choices=("fast", "knn", "normals", "band"),
                     default="fast", help="fast_curvature (default), "
-                    "knn_cloud_grid or knn_cellwise_band")
+                    "knn_cloud_grid, estimate_and_orient_normals or "
+                    "knn_cellwise_band")
     ap.add_argument("--k", type=int, default=20,
                     help="neighbors per point (default 20)")
     ap.add_argument("--trace-out", type=Path, default=None,
@@ -54,6 +58,7 @@ def main():
     from chip_smoke import card_label, fitted_band
     from pct_tpu_torch.core import from_numpy
     from pct_tpu_torch.experimental import build_row_blocks, knn_cellwise_band
+    from pct_tpu_torch.mesh import estimate_and_orient_normals
     from pct_tpu_torch.neighbors import cellknn, knn_cloud_grid
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.pipeline import fast_curvature
@@ -63,7 +68,8 @@ def main():
     print(f"card: {label}", flush=True)
     pts, _ = generate_shape("torus", N_POINTS, radius=1.0)
     cloud = from_numpy(pts, pad_multiple=1 << 16, device="cuda")
-    path = {"fast": fast_curvature, "knn": knn_cloud_grid}.get(args.path)
+    path = {"fast": fast_curvature, "knn": knn_cloud_grid,
+            "normals": estimate_and_orient_normals}.get(args.path)
     if args.path == "band":
         n = cloud.num_points
         grid = build_grid(cloud.points, n,

@@ -480,3 +480,78 @@ def test_band_select_kernel_bit_identical(cuda, case, mode):
         assert missing[:, -1].all()
     if kw.get("lattice"):
         assert (d_k[:, 1:] == d_k[:, :-1])[~missing[:, 1:]].any()
+
+
+# --- the mesh path on the card against its CPU run --------------------------
+
+def _torus_cloud(n):
+    from pct_tpu_torch.shapes import generate_shape
+
+    return generate_shape("torus", n, perturbation_strength=1e-3, seed=1)[1]
+
+
+@pytest.mark.parametrize("k", [16, 50], ids=["list_route", "moments_route"])
+def test_normals_card_vs_cpu(cuda, monkeypatch, k):
+    """The hierarchical path (threshold lowered to 2000) on a 5k torus:
+    one launch a bucket of the plan's layouts at each k (the moments at
+    k, the rows at kv, or at k on the list route, and at kc), and the
+    card's normals have the CPU run's signs and directions to 1e-5."""
+    import pct_tpu_torch.mesh.normals as tn
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.ops.moments import knn_moments as mom
+
+    monkeypatch.setattr(tn, "_HIER_THRESHOLD", 2000)
+    pts = _torus_cloud(5000)
+    cloud = from_numpy(pts, device=cuda)
+    plan = tn.plan_normals(cloud.points, cloud.num_points, k)
+    assert plan.hierarchical
+    want_rows = {}
+    for kk, n in ((plan.kc, 1),
+                  (plan.kv if k >= 32 else plan.k, len(plan.rows[0]))):
+        want_rows[kk] = want_rows.get(kk, 0) + n
+    knn_select_rows.launches_by_k.clear()
+    before = mom.launches
+    got = tn.estimate_and_orient_normals(cloud, k=k,
+                                         device=cuda)[:5000].cpu().numpy()
+    assert knn_select_rows.launches_by_k == want_rows
+    assert mom.launches - before == (len(plan.moments[0]) if k >= 32 else 0)
+    want = tn.estimate_and_orient_normals(from_numpy(pts, device="cpu"), k=k,
+                                          device="cpu")[:5000].numpy()
+    dot = np.sum(got * want, axis=1)
+    assert (dot > 0).all()
+    assert dot.min() >= 1 - 1e-5
+
+
+def _torus_mesh(nu, nv):
+    u = 2 * np.pi * np.arange(nu) / nu
+    v = 2 * np.pi * np.arange(nv) / nv
+    U, V = np.meshgrid(u, v, indexing="ij")
+    rho = 1.0 + np.cos(V) / 3.0
+    verts = np.stack([rho * np.cos(U), rho * np.sin(U), np.sin(V) / 3.0],
+                     -1).reshape(-1, 3).astype(np.float32)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a = i * nv + j
+    b = ((i + 1) % nu) * nv + j
+    cc = ((i + 1) % nu) * nv + (j + 1) % nv
+    d = i * nv + (j + 1) % nv
+    faces = np.concatenate([np.stack([a, b, cc], -1).reshape(-1, 3),
+                            np.stack([a, cc, d], -1).reshape(-1, 3)])
+    return verts, faces.astype(np.int32)
+
+
+def test_taubin_smooth_card_vs_cpu(cuda):
+    from pct_tpu_torch.mesh import mesh_energies, taubin_smooth
+
+    v, f = _torus_mesh(300, 100)
+    v = v + np.random.default_rng(0).standard_normal(v.shape).astype(
+        np.float32) * 1e-3
+    vt, ft = torch.from_numpy(v), torch.from_numpy(f)
+    got = taubin_smooth(vt.to(cuda), ft.to(cuda)).cpu()
+    want = taubin_smooth(vt, ft)
+    diag = float(np.linalg.norm(v.max(0) - v.min(0)))
+    assert float((got - want).abs().max()) <= 1e-6 * diag
+    ones = torch.ones(len(v))
+    e_g = mesh_energies(vt.to(cuda), ft.to(cuda), ones.to(cuda), ones.to(cuda))
+    e_c = mesh_energies(vt, ft, ones, ones)
+    for a, b in zip(e_g, e_c):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-5)

@@ -117,13 +117,20 @@ NEW_MODULES = ["pct_tpu_torch.experimental",
                "pct_tpu_torch.curvature.pca",
                "pct_tpu_torch.pipeline.neighbor_study",
                "pct_tpu_torch.utils.filters",
-               "pct_tpu_torch.utils.transforms"]
+               "pct_tpu_torch.utils.transforms",
+               "pct_tpu_torch.mesh",
+               "pct_tpu_torch.mesh.normals",
+               "pct_tpu_torch.mesh.smooth",
+               "pct_tpu_torch.mesh.energies",
+               "pct_tpu_torch.mesh.downsample",
+               "pct_tpu_torch.shapes.generators",
+               "pct_tpu_torch.shapes.analytic"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_band_and_study_modules_import_no_jax(module):
-    """Each module of the band kNN, PCA and study slice names neither JAX
-    nor the JAX package among its imports."""
+    """Each module of the band kNN, PCA and study slice, and of the mesh
+    slice, names neither JAX nor the JAX package among its imports."""
     path = ROOT / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = ROOT / module.replace(".", "/") / "__init__.py"
@@ -144,6 +151,16 @@ def test_neighbor_study_defaults_to_cuda(monkeypatch):
     pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
     with pytest.raises(RuntimeError, match="cuda"):
         explicit_quadratic_neighbor_study(from_numpy(pts, device="cpu"))
+
+
+def test_normals_default_to_cuda(monkeypatch):
+    from pct_tpu_torch.mesh import estimate_and_orient_normals
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
+    cloud = from_numpy(pts, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        estimate_and_orient_normals(cloud)
 
 
 def test_build_cache_keys_on_shared_headers(tmp_path, monkeypatch):

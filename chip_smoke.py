@@ -58,7 +58,7 @@ without printing its result line:
       with an all-True mask (K as unmasked) and with the farthest half
       of every row masked (no NaN);
 6. timings, each printed beside the card's name and power limit (after
-   phase 7, with its own);
+   phases 7 and 8, which print their own);
 7. the device half of the mesh path:
    a. ``estimate_and_orient_normals(cloud, k=50)`` on the same cloud
       (hierarchical): on every bucket of the layouts ``plan_normals``
@@ -75,8 +75,22 @@ without printing its result line:
       ``mesh_energies`` with 7b's K and H against the analytic torus,
       ``voxel_downsample`` of the 1M cloud in both modes against the
       CPU; each timed;
-8. the kernel table (one JSON line; each kernel's ``mesh_path`` lists
-   its records at phase 7's shapes) and the result line.
+8. the mesh path, ``create_mesh_with_curvature`` on the 1M torus at the
+   reference's defaults (Taubin x10, both hole passes, adaptive radii):
+   a. the BPA library built from the checkout's ``native/bpa.cpp`` into
+      ``pct_tpu_torch/_build/`` (build seconds printed);
+   b. one call: vertices, faces per vertex, boundary edges, NaN in K and
+      H, normals' sign agreement with the tube normal, area, bending and
+      stretching against the analytic torus, beside the JAX package's
+      own 1M run;
+   c. the stage timings, device stages against host stages;
+   d. the launches of that call at each k (moments at k=50, rows at
+      kv=12 and kc=16, coords at k=20 once a bucket of the smoothed
+      vertices' layout), then the coords kernel bit-identical to its
+      plain version on every bucket of that layout;
+   e. the mesh written as binary PLY and read back equal;
+9. the kernel table (one JSON line; each kernel's ``mesh_path`` lists
+   its records at phase 7's and phase 8's shapes) and the result line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -128,6 +142,13 @@ BAND_FIRST_DESIGN_MS = {1024: 37.771, 384: 19.381}
 K_NORMALS = 50                   # estimate_and_orient_normals' default k
 MESH_SIDE = 1000                 # (u, v) lattice of the structured torus mesh
 VOXEL = 0.02                     # voxel edge of the downsample check
+# the JAX package's own 1M torus under the mesh protocol
+# (incremental_shape_comparison_results.csv, row "torus, Unperturbed"):
+# area, bending and stretching against the analytic torus
+JAX_MESH_TORUS = {"area_err": 0.11476384911336748e-2,
+                  "bending_err": -6.738290212835834e-2,
+                  "stretching": 0.14316698908805847}
+DEVICE_STAGES = ("normals", "smooth", "curvature", "energies")
 
 
 def log(*a):
@@ -1135,6 +1156,143 @@ def mesh_ops_phase(label, cloud, verts, faces, vres):
         f"{ds_ms['centroid']:.3f} ms")
 
 
+def mesh_path_phase(label, pts, counters, none):
+    """Phase 8: ``create_mesh_with_curvature`` on the 1M torus at the
+    reference's defaults, once, with its launches counted; then the coords
+    kernel against its plain version on every bucket of the smoothed
+    vertices' layout, and the mesh through the port's binary PLY."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import pct_tpu_torch.mesh.normals as nm
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.io import read_ply, write_ply
+    from pct_tpu_torch.mesh import boundary_edges, reconstruct
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+    from pct_tpu_torch.pipeline import create_mesh_with_curvature, plan_engine
+    from pct_tpu_torch.shapes import analytic_area, analytic_energies
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    # --- 8a. the BPA library, built from the checkout's native/bpa.cpp ---
+    lib = reconstruct.library_path()
+    fresh = not lib.exists()
+    t0 = time.perf_counter()
+    reconstruct.load()
+    build_s = time.perf_counter() - t0
+    log(f"[{label}] BPA library {lib.relative_to(lib.parents[2])}: "
+        f"{'built with g++' if fresh else 'already built'} in {build_s:.2f} s")
+    check(lib.exists() and lib.parent.name == "_build"
+          and lib.parent.parent.name == "pct_tpu_torch",
+          "the BPA library lies in pct_tpu_torch/_build/")
+
+    # --- 8b. the mesh path, driven once ---
+    n = len(pts)
+    plan = nm.plan_normals(from_numpy(pts, device=dev).points, n, K_NORMALS)
+    kv, kc = plan.kv, plan.kc
+    spec_m, spec_v = plan.moments[0], plan.rows[0]
+    check(plan.hierarchical and plan.moments is not None,
+          "the mesh path's normals take the hierarchical moments route")
+    del plan
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_k"):
+            fn.launches_by_k.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = create_mesh_with_curvature(pts, k_neighbors=K_LIST, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    by_k = {name: dict(fn.launches_by_k) for name, fn in counters.items()
+            if hasattr(fn, "launches_by_k")}
+
+    V, F = len(res.vertices), len(res.faces)
+    nb = len(boundary_edges(res.faces))
+    e = res.energies
+    a_ref = analytic_area("torus")
+    b_ref, _ = analytic_energies("torus")
+    area_err, bend_err = e.total_area / a_ref - 1, e.bending / b_ref - 1
+    agree = tube_normal_agreement(res.normals, pts)
+    nan_k, nan_h = int(np.isnan(res.K).sum()), int(np.isnan(res.H).sum())
+    log(f"[{label}] create_mesh_with_curvature, 1M torus, k_neighbors="
+        f"{K_LIST}, Taubin x10, both hole passes, adaptive radii: {V} "
+        f"vertices, {F} faces ({F / V:.4f} per vertex), {nb} boundary edges "
+        f"({nb / (3 * F):.3e} of 3F), {res.n_holes_filled} holes filled; "
+        f"NaN K {nan_k}, H {nan_h}; normals' sign agreement with the tube "
+        f"normal {agree:.6f}")
+    log(f"[{label}] mesh energies: area {e.total_area:.6f} vs {a_ref:.6f} "
+        f"({area_err:+.4%}; JAX package's 1M run "
+        f"{JAX_MESH_TORUS['area_err']:+.4%}), bending {e.bending:.6f} vs "
+        f"{b_ref:.6f} ({bend_err:+.4%}; JAX {JAX_MESH_TORUS['bending_err']:+.4%}"
+        f"), stretching {e.stretching:.6f} (JAX "
+        f"{JAX_MESH_TORUS['stretching']:.6f}; analytic 0)")
+    check(V == N_POINTS, "the mesh keeps every point as a vertex")
+    check(F >= 1.9 * V, "faces >= 1.9 x vertices")
+    check(nb <= 0.01 * 3 * F, "boundary edges <= 1% of 3 x faces")
+    check(nan_k == 0 and nan_h == 0, "no NaN in the vertex K and H")
+    check(agree > 0.999 or agree < 0.001, "mesh normals globally consistent")
+    check(abs(area_err) <= 5e-3, "mesh area within 0.5% of analytic")
+    check(abs(bend_err) <= 0.1, "mesh bending within 10% of analytic")
+    check(abs(e.stretching) <= 0.3, "|mesh stretching| <= 0.3")
+
+    # --- 8c. where the wall goes ---
+    t = res.timings
+    dev_s = sum(t.get(s, 0.0) for s in DEVICE_STAGES)
+    host_s = sum(v for s, v in t.items() if s not in DEVICE_STAGES)
+    log(f"[{label}] create_mesh_with_curvature timings (s): {t}; wall "
+        f"{wall:.3f} s (one call); device "
+        f"stages {dev_s:.3f} s ({dev_s / (dev_s + host_s):.2%} of the staged "
+        f"time), host stages (bpa with the spacing sample, holes_small, "
+        f"holes_large) {host_s:.3f} s ({host_s / (dev_s + host_s):.2%})")
+
+    # --- 8d. launches, and the coords kernel at the vertex shapes ---
+    vcloud = from_numpy(res.vertices, device=dev)
+    grid = build_grid(vcloud.points, n, estimate_cell_size(vcloud.points, n,
+                                                           K_LIST))
+    engine, spec, mc, _ = plan_engine(grid, K_LIST)
+    check(engine == "list", f"mesh vertices k={K_LIST} run the list engine")
+    log(f"vertex curvature k={K_LIST} on the BPA mesh's smoothed vertices: "
+        f"{len(spec)} buckets {[tuple(s) for s in spec]}")
+    want = {**none, "moments": len(spec_m),
+            "select_rows": len(spec_v) + 1, "select_coords": len(spec)}
+    log(f"mesh path launches: {launches}; select_rows by k "
+        f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}")
+    check(launches == want, f"mesh path launches {launches}, want {want}")
+    check(by_k["select_rows"] == {kv: len(spec_v), kc: 1},
+          f"select_rows by k {by_k['select_rows']}")
+    check(by_k["select_coords"] == {K_LIST: len(spec)},
+          f"select_coords by k {by_k['select_coords']}")
+    per, err = select_vs_plain(cellknn, grid, cellknn.compact_cells(grid, mc),
+                               spec, K_LIST)
+    del grid, vcloud
+    log(f"[{label}] coords kernel on the BPA mesh vertices: "
+        f"{sum(r['ms'] for r in per):.3f} ms/call over {len(spec)} buckets")
+
+    # --- 8e. the mesh through the port's binary PLY ---
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "torus_mesh.ply")
+        t0 = time.perf_counter()
+        write_ply(path, res.vertices, res.normals, res.faces,
+                  vertex_props={"gaussian_curvature": res.K,
+                                "mean_curvature": res.H}, binary=True)
+        back = read_ply(path)
+        io_s = time.perf_counter() - t0
+    check(np.array_equal(back.points, res.vertices)
+          and np.array_equal(back.faces, res.faces)
+          and np.array_equal(back.vertex_props["gaussian_curvature"], res.K),
+          "binary PLY round trip: vertices, faces and K equal")
+    log(f"[{label}] binary PLY write + read of the mesh: {io_s:.2f} s; "
+        f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(buckets=per, max_err=err, launches=launches["select_coords"],
+                calls=1, wall=wall, timings=t,
+                label=f"k={K_LIST} (BPA mesh of the 1M torus, smoothed "
+                      "vertices)")
+
+
 def mesh_record(rec, flops=None):
     """A kernel's record at one of phase 7's shapes, per call of the
     driven entry point, with its buckets."""
@@ -1155,6 +1313,7 @@ def mesh_record(rec, flops=None):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     root = Path(__file__).resolve().parent
@@ -1341,7 +1500,10 @@ def main():
     verts, faces = torus_mesh(MESH_SIDE)
     mesh_vertex, vres = vertex_curvature_phase(label, verts, counters, none)
     mesh_ops_phase(label, cloud, verts, faces, vres)
-    del vres
+    del vres, verts, faces
+
+    # --- 8. the mesh path ---
+    mesh_path = mesh_path_phase(label, pts, counters, none)
 
     # --- 6. numbers ---
     for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
@@ -1429,6 +1591,7 @@ def main():
     for key in ("rows_v", "rows_c"):
         mesh["select_rows"].append(mesh_record(mesh_normals[key]))
     mesh["select_coords"].append(mesh_record(mesh_vertex))
+    mesh["select_coords"].append(mesh_record(mesh_path))
     for name, recs in mesh.items():
         for r in recs:
             lib = ("" if r["library_ms"] is None else
@@ -1443,8 +1606,13 @@ def main():
                         mesh_vertex["wall"])):
         log(f"[{label}] {name}, 1M torus: warm wall {wall:.4f} s/call, "
             f"{N_POINTS / wall:.0f} points/s")
+    log(f"[{label}] create_mesh_with_curvature, 1M torus: wall "
+        f"{mesh_path['wall']:.3f} s (one call), stages (s) "
+        f"{mesh_path['timings']}")
 
-    # --- 8. result ---
+    # --- 9. result ---
+    log(f"[{label}] chip_smoke.py: {time.perf_counter() - t_start:.1f} s "
+        "from start to the result")
     log(f"kernels: {[r['name'] for r in rows]}")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

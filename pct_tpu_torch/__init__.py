@@ -2,8 +2,9 @@
 
 The JAX package ``pct_tpu`` stays the reference; this package mirrors its
 sub-package layout (``core``, ``neighbors``, ``ops``, ``fit``,
-``curvature``, ``pipeline``, ``mesh``, ``shapes``) so each module's
-counterpart is easy to find. It imports ``torch`` and ``numpy`` only.
+``curvature``, ``pipeline``, ``mesh``, ``shapes``, ``io``) so each module's
+counterpart is easy to find. It imports ``torch``, ``numpy`` and, for
+the hole fill's Delaunay triangulation, ``scipy``; nothing of JAX.
 
 Ported so far:
 
@@ -24,6 +25,12 @@ Ported so far:
   below, voters and the hierarchical coarse graph from the rows kernel),
   ``mesh.taubin_smooth``, ``mesh.mesh_energies`` with the vertex
   curvatures, and ``mesh.voxel_downsample``;
+- the mesh path, ``pipeline.create_mesh_with_curvature`` (normals → ball
+  pivoting → hole filling → Taubin → vertex curvature → energies), with
+  its host half: ``mesh.boundary`` (numpy/scipy), ``mesh.reconstruct``
+  (the C++ ball pivoting of ``native/bpa.cpp``, built with g++ at first
+  use) and the file formats of ``io`` (``load_points``, PLY, VTK, txt,
+  ASC);
 - the analytic shapes and oracles of ``shapes`` (own numpy copies).
 
 The kernels are hand-written CUDA C++ for ``sm_90a``, built with nvcc at

@@ -52,6 +52,28 @@ class PointCloud:
         return (torch.arange(self.capacity, device=self.points.device)
                 < self.num_points)
 
+    # ---- norms of the whole cloud (ref pointCloudToolbox.py:43-47) ----
+    def norms(self) -> dict:
+        """l1, l2 and linf norms of the flattened valid coordinates."""
+        flat = torch.where(self.mask()[:, None], self.points, 0.0).reshape(-1)
+        return {
+            "l1": torch.sum(torch.abs(flat)),
+            "l2": torch.sqrt(torch.sum(flat * flat)),
+            "linf": torch.max(torch.abs(flat)),
+        }
+
+    def bounds(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(min_xyz, max_xyz) over valid points."""
+        m = self.mask()[:, None]
+        lo = torch.min(torch.where(m, self.points, torch.inf), dim=0).values
+        hi = torch.max(torch.where(m, self.points, -torch.inf), dim=0).values
+        return lo, hi
+
+    def domains(self) -> dict:
+        """x/y/z extents (ref pointCloudToolbox.py:64-66)."""
+        lo, hi = self.bounds()
+        return {"x": (lo[0], hi[0]), "y": (lo[1], hi[1]), "z": (lo[2], hi[2])}
+
 
 def from_numpy(
     points: np.ndarray,

@@ -106,3 +106,30 @@ def fit_quadratic(rotated: torch.Tensor,
         1.0 / sa, 1.0 / sb, torch.ones_like(sa),
     ], dim=-1)
     return c * scale_back
+
+
+def quadratic_design(ab: torch.Tensor) -> torch.Tensor:
+    """(..., k, 2) tangent coordinates -> (..., k, 6) design matrix
+    [a², b², ab, a, b, 1]."""
+    a, b = ab[..., 0], ab[..., 1]
+    return torch.stack([a * a, b * b, a * b, a, b, torch.ones_like(a)],
+                       dim=-1)
+
+
+def fit_quadratic_lstsq_oracle(rotated: torch.Tensor,
+                               mask: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """Reference-semantics oracle: the unscaled design solved by an
+    SVD-based least squares (``torch.linalg.lstsq``, driver "gelsd"),
+    (..., k, 3) -> (..., 6). Slow and CPU-only; tests bound the normal
+    equations' divergence with it."""
+    if mask is None:
+        mask = torch.ones(rotated.shape[:-1], dtype=torch.bool,
+                          device=rotated.device)
+    m = mask[..., None].to(rotated.dtype)
+    X = quadratic_design(rotated[..., :2]) * m
+    z = rotated[..., 2] * mask
+    flatX = X.reshape((-1,) + X.shape[-2:]).cpu()
+    flatz = z.reshape((-1, z.shape[-1], 1)).cpu()
+    c = torch.linalg.lstsq(flatX, flatz, driver="gelsd").solution
+    return c.reshape(X.shape[:-2] + (6,)).to(rotated.device)

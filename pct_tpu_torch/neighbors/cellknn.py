@@ -716,16 +716,20 @@ def knn_cellwise(grid: GridIndex, cells: CellTable, k: int,
 
 
 def all_points_spec(n: int, k: int, capacity: int | None = None,
-                    max_cells: int | None = None):
-    """``knn_all_points``' layout for n grid rows: (spec, max_cells) of
-    its one bucket, of conservative capacity (2.5k + 16, 8-rounded) and
-    27·capacity candidate slots a cell."""
+                    max_cells: int | None = None,
+                    cand_cap: int | None = None):
+    """The one-bucket layout for n grid rows (``knn_all_points``' and the
+    un-bucketed ``fused_curvature``'s): (spec, max_cells) of a bucket
+    that takes every cell, of conservative capacity (default 2.5k + 16,
+    8-rounded) and ``cand_cap`` (default 27·capacity) candidate slots a
+    cell."""
     if capacity is None:
         capacity = _round_up(int(2.5 * k) + 16, 8)
     if max_cells is None:
         max_cells = default_max_cells(n, k)
     return (BucketSpec(hi_key=1 << 30, capacity=capacity,
-                       cand_cap=27 * capacity, max_cells=max_cells),), max_cells
+                       cand_cap=cand_cap or 27 * capacity,
+                       max_cells=max_cells),), max_cells
 
 
 def knn_all_points(grid: GridIndex, k: int, capacity: int | None = None,

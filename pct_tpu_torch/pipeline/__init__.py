@@ -11,6 +11,10 @@ from pct_tpu_torch.pipeline.fused import (  # noqa: F401
     fused_curvature,
     plan_engine,
 )
+from pct_tpu_torch.pipeline.mesh_pipeline import (  # noqa: F401
+    MeshResult,
+    create_mesh_with_curvature,
+)
 from pct_tpu_torch.pipeline.neighbor_study import (  # noqa: F401
     explicit_quadratic_neighbor_study,
 )

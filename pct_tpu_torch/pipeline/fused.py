@@ -27,6 +27,7 @@ from pct_tpu_torch.core.device import resolve_device
 from pct_tpu_torch.curvature.explicit import Curvatures
 from pct_tpu_torch.fit.moments import curvature_from_moments_chunked
 from pct_tpu_torch.neighbors.cellknn import (
+    all_points_spec,
     apply_cellwise_bucketed,
     compact_cells,
     default_max_cells,
@@ -109,8 +110,10 @@ def _fused_on_grid(grid: GridIndex, k: int, max_cells: int, bucket_spec,
 
 
 def fused_curvature(points: torch.Tensor, num_points: int,
-                    cell_size: torch.Tensor, k: int = 20, *, bucket_spec,
-                    max_cells: int | None = None, method: str = "explicit",
+                    cell_size: torch.Tensor, k: int = 20, *,
+                    bucket_spec=None, max_cells: int | None = None,
+                    capacity: int | None = None, cand_cap: int | None = None,
+                    method: str = "explicit",
                     implicit_mode: str = "exact", engine: str = "list",
                     split: tuple | None = None,
                     device: str | torch.device = "cuda") -> FusedResult:
@@ -119,7 +122,14 @@ def fused_curvature(points: torch.Tensor, num_points: int,
 
     ``bucket_spec`` and ``max_cells`` come from ``probe_grid_buckets``
     (``fast_curvature`` runs the probe); ``max_cells`` defaults to the
-    conservative ``default_max_cells``. ``method`` is "explicit" or
+    conservative ``default_max_cells``. With ``bucket_spec=None`` the
+    loop runs un-bucketed, as the JAX package's ``apply_cellwise`` does:
+    one bucket that takes every cell, of ``capacity`` query slots
+    (default 2.5k + 16, 8-rounded) and ``cand_cap`` candidate slots
+    (default 27·capacity) a cell (``cellknn.all_points_spec``); it
+    launches the same kernels as the bucketed route, once a call.
+    ``capacity`` and ``cand_cap`` are ignored with a ``bucket_spec``.
+    ``method`` is "explicit" or
     "implicit" (``implicit_mode`` "exact" or "reference");
     ``engine`` is "list" (k <= 128) or "moments" (explicit only).
     ``split=(cap, factor)`` virtual-splits cells to <= cap
@@ -130,7 +140,10 @@ def fused_curvature(points: torch.Tensor, num_points: int,
     """
     _check_slice(k, method, engine)
     dev = resolve_device(device)
-    if max_cells is None:
+    if bucket_spec is None:
+        bucket_spec, max_cells = all_points_spec(
+            points.shape[0], k, capacity, max_cells, cand_cap)
+    elif max_cells is None:
         max_cells = default_max_cells(points.shape[0], k)
     grid = build_grid(points.to(dev), num_points, cell_size.to(dev))
     return _fused_on_grid(grid, k, max_cells, bucket_spec, engine, split,

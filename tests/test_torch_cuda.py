@@ -555,3 +555,40 @@ def test_taubin_smooth_card_vs_cpu(cuda):
     e_c = mesh_energies(vt, ft, ones, ones)
     for a, b in zip(e_g, e_c):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-5)
+
+
+def test_mesh_pipeline_card_vs_cpu(cuda):
+    """``create_mesh_with_curvature`` on a 5000-point torus at its
+    defaults, on the card and on the CPU: BPA and the hole passes run on
+    the host from each run's normals and smoothed vertices, so the face
+    sets are equal. Taubin's ``index_add_`` adds with float atomics on the
+    card, which reorders its sums, so the energies agree to a tolerance:
+    area and bending to 1e-4 relative; the stretching Σ K_f A_f, which
+    cancels towards the torus' analytic 0 (0.479 here), to 1e-4 of its
+    absolute mass Σ |K|_f A_f (26.0), where a relative bound on the small
+    remainder would magnify rounding (measured on the card: 2.2e-4 of
+    0.479, 8.6e-6 of the mass)."""
+    from pct_tpu_torch.mesh import mesh_energies
+    from pct_tpu_torch.ops.moments import knn_moments as mom
+    from pct_tpu_torch.pipeline import create_mesh_with_curvature
+
+    pts = _torus_cloud(5000)
+    before = (mom.launches, knn_select_rows.launches,
+              knn_select_coords.launches)
+    got = create_mesh_with_curvature(pts, device=cuda)
+    assert mom.launches > before[0] and knn_select_rows.launches > before[1]
+    assert knn_select_coords.launches > before[2]
+    want = create_mesh_with_curvature(pts, device="cpu")
+    face_set = [set(map(tuple, np.sort(r.faces, axis=1).tolist()))
+                for r in (got, want)]
+    assert face_set[0] == face_set[1] and len(face_set[0]) > 9000
+    assert got.n_holes_filled == want.n_holes_filled
+    assert (np.sum(got.normals * want.normals, axis=1) > 0).all()
+    g, w = got.energies, want.energies
+    assert abs(g.total_area - w.total_area) <= 1e-4 * w.total_area
+    assert abs(g.bending - w.bending) <= 1e-4 * w.bending
+    mass = float(mesh_energies(
+        torch.from_numpy(want.vertices), torch.from_numpy(want.faces),
+        torch.from_numpy(np.abs(want.K)), torch.from_numpy(want.H)).stretching)
+    assert abs(g.stretching - w.stretching) <= 1e-4 * mass
+    assert not np.isnan(got.K).any() and not np.isnan(got.H).any()

@@ -124,7 +124,15 @@ NEW_MODULES = ["pct_tpu_torch.experimental",
                "pct_tpu_torch.mesh.energies",
                "pct_tpu_torch.mesh.downsample",
                "pct_tpu_torch.shapes.generators",
-               "pct_tpu_torch.shapes.analytic"]
+               "pct_tpu_torch.shapes.analytic",
+               "pct_tpu_torch.io",
+               "pct_tpu_torch.io.txt",
+               "pct_tpu_torch.io.ply",
+               "pct_tpu_torch.io.asc",
+               "pct_tpu_torch.io.vtk",
+               "pct_tpu_torch.mesh.boundary",
+               "pct_tpu_torch.mesh.reconstruct",
+               "pct_tpu_torch.pipeline.mesh_pipeline"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -161,6 +169,23 @@ def test_normals_default_to_cuda(monkeypatch):
     cloud = from_numpy(pts, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         estimate_and_orient_normals(cloud)
+
+
+def test_mesh_path_defaults_to_cuda(monkeypatch):
+    """The mesh pipeline and ``reconstruct_cloud`` run their device stages
+    on ``cuda`` unless told otherwise, and raise without a card before
+    any host stage runs."""
+    from pct_tpu_torch.mesh.reconstruct import reconstruct_cloud
+    from pct_tpu_torch.pipeline import create_mesh_with_curvature
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_mesh_with_curvature(pts)
+    with pytest.raises(RuntimeError, match="cuda"):
+        reconstruct_cloud(pts)
+    with pytest.raises(RuntimeError, match="cuda"):
+        reconstruct_cloud(pts, normals=pts)
 
 
 def test_build_cache_keys_on_shared_headers(tmp_path, monkeypatch):

@@ -89,8 +89,25 @@ without printing its result line:
       vertices' layout), then the coords kernel bit-identical to its
       plain version on every bucket of that layout;
    e. the mesh written as binary PLY and read back equal;
-9. the kernel table (one JSON line; each kernel's ``mesh_path`` lists
-   its records at phase 7's and phase 8's shapes) and the result line.
+9. the validation harness (``pct_tpu_torch.validate``) on the same 1M
+   torus, each path driven with the counts set to 0 just before it:
+   a. ``run_sweep`` of one row (torus, r=1, k=20) at the defaults, the
+      mesh protocol with Taubin x10: status ok, no NaN, area, bending
+      and stretching within phase 8's limits beside the JAX package's
+      own 1M row, the row's points equal to phase 8's, its energies
+      within 1e-3 of phase 8's (the stretching, a cancelling sum, within
+      1e-3 of its mesh's sum |K|_f A_f), launches at each k as phase 8d
+      counts them, the CSV read back under ``CSV_FIELDS``;
+   b. ``validate_cloud(auto_k=True, use_mesh=False)`` at k=20: the study
+      and the coords kernel (launches as phase 3b), the three integrals
+      recomputed from a separate ``fast_curvature`` call within 1e-6;
+   c. ``run_scans(repeat=2)`` at its defaults (k=100, outlier filter,
+      study tolerance 1e-2) on the torus written as a points-only binary
+      PLY: two ok rows with equal energies, the moments kernel launched
+      as in phase 4b each run;
+10. the kernel table (one JSON line; each kernel's ``mesh_path`` lists
+   its records at phase 7's and phase 8's shapes, ``validation`` its
+   launches in phase 9) and the result line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -364,6 +381,19 @@ def moments_vs_plain(cellknn, grid, cells, spec, k):
     return per_bucket, max_err, max_ratio
 
 
+def reset_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_k"):
+            fn.launches_by_k.clear()
+
+
+def read_counts(counters):
+    return ({name: fn.launches for name, fn in counters.items()},
+            {name: dict(fn.launches_by_k) for name, fn in counters.items()
+             if hasattr(fn, "launches_by_k")})
+
+
 def drive(call, label, counters, want_launches, warm=3, want_by_k=None):
     """A main path: counts set to 0, one cold and ``warm`` warm calls of
     ``call()``, counts read. ``want_launches`` maps each counter's name
@@ -373,10 +403,7 @@ def drive(call, label, counters, want_launches, warm=3, want_by_k=None):
     import torch
 
     want_by_k = want_by_k or {}
-    for fn in counters.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_k"):
-            fn.launches_by_k.clear()
+    reset_counts(counters)
     walls = []
     for i in range(1 + warm):
         before = {name: fn.launches for name, fn in counters.items()}
@@ -1197,18 +1224,13 @@ def mesh_path_phase(label, pts, counters, none):
     check(plan.hierarchical and plan.moments is not None,
           "the mesh path's normals take the hierarchical moments route")
     del plan
-    for fn in counters.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_k"):
-            fn.launches_by_k.clear()
+    reset_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = create_mesh_with_curvature(pts, k_neighbors=K_LIST, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    by_k = {name: dict(fn.launches_by_k) for name, fn in counters.items()
-            if hasattr(fn, "launches_by_k")}
+    launches, by_k = read_counts(counters)
 
     V, F = len(res.vertices), len(res.faces)
     nb = len(boundary_edges(res.faces))
@@ -1288,9 +1310,225 @@ def mesh_path_phase(label, pts, counters, none):
     log(f"[{label}] binary PLY write + read of the mesh: {io_s:.2f} s; "
         f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
     return dict(buckets=per, max_err=err, launches=launches["select_coords"],
-                calls=1, wall=wall, timings=t,
+                calls=1, wall=wall, timings=t, energies=e,
                 label=f"k={K_LIST} (BPA mesh of the 1M torus, smoothed "
                       "vertices)")
+
+
+def vertex_buckets(verts, k):
+    """The buckets ``fast_curvature(k)`` runs on these points."""
+    import torch
+
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+    from pct_tpu_torch.pipeline import plan_engine
+
+    c = from_numpy(verts, device=torch.device("cuda"))
+    grid = build_grid(c.points, c.num_points,
+                      estimate_cell_size(c.points, c.num_points, k))
+    return plan_engine(grid, k)[1]
+
+
+def validation_phase(label, pts, counters, none, phase8, n20, n100):
+    """Phase 9: the validation harness on the 1M torus: one sweep row
+    under the mesh protocol, one mesh-free ``validate_cloud`` with the
+    study, and ``run_scans`` at k=100 on a PLY of the cloud. ``n20``
+    and ``n100`` are phase 3b's and 4b's launches a call."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import pct_tpu_torch.mesh.normals as nm
+    import pct_tpu_torch.pipeline.mesh_pipeline as mp
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.io import write_ply
+    from pct_tpu_torch.mesh import mesh_energies
+    from pct_tpu_torch.pipeline import fast_curvature
+    from pct_tpu_torch.shapes import analytic_area, analytic_energies
+    from pct_tpu_torch.validate import run_scans, run_sweep, validate_cloud
+    from pct_tpu_torch.validate.sweep import CSV_FIELDS, STAGE_KEYS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    n = len(pts)
+    a_ref = analytic_area("torus")
+    b_ref, _ = analytic_energies("torus")
+
+    # --- 9a. one sweep row, the mesh protocol ---
+    plan = nm.plan_normals(from_numpy(pts, device=dev).points, n, K_NORMALS)
+    kv, kc = plan.kv, plan.kc
+    n_mom, n_voters = len(plan.moments[0]), len(plan.rows[0])
+    del plan
+    meshes = []                       # what the row's mesh path received
+    inner = mp.create_mesh_with_curvature
+
+    def spy(points, **kw):
+        meshes.append((np.array(points, copy=True), inner(points, **kw)))
+        return meshes[-1][1]
+
+    mp.create_mesh_with_curvature = spy
+    with tempfile.TemporaryDirectory() as tmp:
+        out_csv = str(Path(tmp) / "sweep.csv")
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = run_sweep([N_POINTS], [1.0], ["torus"], out_csv=out_csv,
+                         backup_csv=str(Path(tmp) / "backup.csv"),
+                         k_neighbors=K_LIST)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launches, by_k = read_counts(counters)
+        mp.create_mesh_with_curvature = inner
+        with open(out_csv, newline="") as f:
+            header, *body = list(csv.reader(f))
+    check(len(rows) == 1 and len(meshes) == 1, "one sweep row, one mesh")
+    row = rows[0]
+    (seen, mesh), = meshes
+    check(row["status"] == "ok", f"sweep row status {row['status']!r}")
+    check(row["nan_fraction"] == 0.0, "sweep row: no NaN")
+    check(header == CSV_FIELDS and len(body) == 1
+          and body[0][CSV_FIELDS.index("status")] == "ok",
+          "the sweep CSV reads back under CSV_FIELDS with one ok row")
+    check(seen.dtype == pts.dtype and np.array_equal(seen, pts),
+          "the sweep row's points equal phase 8's bit for bit")
+    area_err = row["computed_area"] / a_ref - 1
+    bend_err = row["bending_energy"] / b_ref - 1
+    stretch = row["stretching_energy"]
+    log(f"[{label}] run_sweep([1M], [1.0], ['torus'], k_neighbors="
+        f"{K_LIST}), mesh protocol, Taubin x10: area {row['computed_area']:.6f}"
+        f" ({area_err:+.4%}; JAX package's 1M row "
+        f"{JAX_MESH_TORUS['area_err']:+.4%}), bending "
+        f"{row['bending_energy']:.6f} ({bend_err:+.4%}; JAX "
+        f"{JAX_MESH_TORUS['bending_err']:+.4%}), stretching {stretch:.6f} "
+        f"(JAX {JAX_MESH_TORUS['stretching']:.6f}); error columns: area "
+        f"{row['area_error_pct']:.4f}%, bending {row['bending_error_pct']:.4f}%"
+        f", stretching {row['stretching_error_pct']:.4f}")
+    check(abs(area_err) <= 5e-3, "sweep area within 0.5% of analytic")
+    check(abs(bend_err) <= 0.1, "sweep bending within 10% of analytic")
+    check(abs(stretch) <= 0.3, "|sweep stretching| <= 0.3")
+    e8 = phase8["energies"]
+    mass = float(mesh_energies(
+        torch.from_numpy(mesh.vertices).to(dev),
+        torch.from_numpy(mesh.faces).to(dev),
+        torch.from_numpy(np.abs(mesh.K)).to(dev),
+        torch.from_numpy(mesh.H).to(dev)).stretching)
+    d_area = abs(row["computed_area"] / e8.total_area - 1)
+    d_bend = abs(row["bending_energy"] / e8.bending - 1)
+    d_str = abs(stretch - e8.stretching)
+    log(f"sweep row vs phase 8b: area rel {d_area:.3e}, bending rel "
+        f"{d_bend:.3e}, stretching |diff| {d_str:.3e} (relative "
+        f"{d_str / abs(e8.stretching):.3e}; sum |K|_f A_f {mass:.6f})")
+    check(d_area <= 1e-3 and d_bend <= 1e-3,
+          "sweep area and bending within 1e-3 of phase 8b")
+    check(d_str <= 1e-3 * mass,
+          "sweep stretching within 1e-3 sum |K|_f A_f of phase 8b")
+    spec_v = vertex_buckets(mesh.vertices, K_LIST)
+    want = {**none, "moments": n_mom, "select_rows": n_voters + 1,
+            "select_coords": len(spec_v)}
+    log(f"sweep row launches: {launches}; select_rows by k "
+        f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}"
+        f" (the row's smoothed vertices: {len(spec_v)} buckets)")
+    check(launches == want, f"sweep row launches {launches}, want {want}")
+    check(by_k["select_rows"] == {kv: n_voters, kc: 1},
+          f"sweep select_rows by k {by_k['select_rows']}")
+    check(by_k["select_coords"] == {K_LIST: len(spec_v)},
+          f"sweep select_coords by k {by_k['select_coords']}")
+    del meshes, mesh, seen
+    t_cols = {f"t_{s}": row[f"t_{s}"] for s in STAGE_KEYS}
+    log(f"[{label}] sweep row: runtime_s {row['runtime_s']:.3f} (wall "
+        f"{wall_a:.3f} s), {t_cols}; phase 8b's timings {phase8['timings']}")
+    sweep_launches = launches
+
+    # --- 9b. mesh-free validate_cloud with the study, k=20 ---
+    spec20 = vertex_buckets(pts, K_LIST)
+    check(len(spec20) == n20, f"the unpadded cloud's k={K_LIST} plan has "
+          f"phase 3b's {n20} buckets ({len(spec20)})")
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = validate_cloud(pts, shape="torus", radius=1.0, k_neighbors=K_LIST,
+                         auto_k=True, use_mesh=False)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches, _ = read_counts(counters)
+    want = {**none, "select_coords": n20}
+    log(f"[{label}] validate_cloud(auto_k=True, use_mesh=False, k="
+        f"{K_LIST}), 1M torus: converged k {res.converged_k} (study kmax "
+        f"{res.study_kmax}, converged fraction {res.converged_fraction}), "
+        f"NaN {res.nan_fraction}, wall {wall_b:.3f} s, stages "
+        f"{res.stage_timings}; launches {launches}")
+    check(res.aborted == "", f"validate_cloud aborted: {res.aborted!r}")
+    check(res.converged_k >= 10 and res.study_kmax == 99,
+          "study: converged k >= 10, kmax 99")
+    check(launches == want, f"validate_cloud launches {launches}, want "
+          f"{want}")
+    validate_launches = launches
+    r = fast_curvature(from_numpy(pts, device=dev), K_LIST)
+    K = r.curv.K[:n].cpu().numpy()
+    H = r.curv.H[:n].cpu().numpy()
+    r_k = r.kth_dist[:n].cpu().numpy()
+    keep = np.isfinite(K) & np.isfinite(H) & r.exact[:n].cpu().numpy()
+    del r
+    areas = np.pi * r_k * r_k / K_LIST
+    again = {"total_area": float(np.nansum(areas[keep])),
+             "bending_energy": float(np.nansum(H[keep] ** 2 * areas[keep])),
+             "stretching_energy": float(np.nansum(K[keep] * areas[keep]))}
+    for key, v in again.items():
+        got = getattr(res, key)
+        log(f"  {key}: harness {got:.9g}, recomputed {v:.9g}")
+        check(abs(got - v) <= 1e-6 * abs(v),
+              f"{key} within 1e-6 of the recomputed integral")
+    log(f"[{label}] mesh-free integrals vs the analytic torus (disk "
+        f"weights, no limit): area {res.total_area / a_ref - 1:+.4%}, "
+        f"bending {res.bending_energy / b_ref - 1:+.4%}, stretching "
+        f"{res.stretching_energy:.6f} (analytic 0); certified rows "
+        f"{keep.mean():.6f}")
+
+    # --- 9c. run_scans at its defaults on a PLY of the cloud ---
+    spec100 = vertex_buckets(pts, K_MOM)
+    check(len(spec100) == n100, f"the unpadded cloud's k={K_MOM} plan has "
+          f"phase 4b's {n100} buckets ({len(spec100)})")
+    with tempfile.TemporaryDirectory() as tmp:
+        scan_dir = Path(tmp) / "scans"
+        scan_dir.mkdir()
+        write_ply(str(scan_dir / "torus_1M.ply"), pts, binary=True)
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan_rows = run_scans(str(scan_dir),
+                              out_csv=str(Path(tmp) / "scans.csv"),
+                              use_mesh=False, repeat=2)
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+        launches, _ = read_counts(counters)
+    want = {**none, "moments": 2 * n100}
+    for sr in scan_rows:
+        log(f"[{label}] run_scans row {sr['run']}: {sr['status']}, "
+            f"{sr['num_points']} points, converged k {sr['converged_k']} "
+            f"({sr['converged_fraction']}), area {sr['total_area']:.6f}, "
+            f"bending {sr['bending_energy']:.6f}, stretching "
+            f"{sr['stretching_energy']:.6f}, NaN {sr['nan_fraction']}, "
+            f"runtime_s {sr['runtime_s']:.3f}, t_study {sr['t_study']}, "
+            f"t_curvature {sr['t_curvature']}")
+    log(f"run_scans(repeat=2) wall {wall_c:.3f} s; launches {launches}")
+    check(len(scan_rows) == 2 and all(
+        sr["status"] == "ok" and sr["nan_fraction"] == 0.0
+        and sr["num_points"] == n for sr in scan_rows),
+        "two ok scans rows with no NaN")
+    check(all(scan_rows[0][key] == scan_rows[1][key] for key in (
+        "total_area", "bending_energy", "stretching_energy")),
+        "the two scans rows' energies equal")
+    check(launches == want, f"run_scans launches {launches}, want {want}")
+    log(f"[{label}] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return {"select_coords": {"sweep_mesh": sweep_launches["select_coords"],
+                              "validate_mesh_free_k20":
+                                  validate_launches["select_coords"]},
+            "moments": {"sweep_mesh": sweep_launches["moments"],
+                        "scans_k100_two_runs": launches["moments"]},
+            "select_rows": {"sweep_mesh": sweep_launches["select_rows"]},
+            "select_pos": {}, "band_select": {}}
 
 
 def mesh_record(rec, flops=None):
@@ -1505,6 +1743,10 @@ def main():
     # --- 8. the mesh path ---
     mesh_path = mesh_path_phase(label, pts, counters, none)
 
+    # --- 9. the validation harness ---
+    validation = validation_phase(label, pts, counters, none, mesh_path,
+                                  len(spec20), len(spec100))
+
     # --- 6. numbers ---
     for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
                         (f"fast_curvature k={K_MOM}", walls100),
@@ -1610,7 +1852,11 @@ def main():
         f"{mesh_path['wall']:.3f} s (one call), stages (s) "
         f"{mesh_path['timings']}")
 
-    # --- 9. result ---
+    for r in rows:
+        r["validation"] = validation[r["name"]]
+        log(f"[{label}] {r['name']} launches in phase 9: {r['validation']}")
+
+    # --- 10. result ---
     log(f"[{label}] chip_smoke.py: {time.perf_counter() - t_start:.1f} s "
         "from start to the result")
     log(f"kernels: {[r['name'] for r in rows]}")

@@ -2,8 +2,8 @@
 
 The JAX package ``pct_tpu`` stays the reference; this package mirrors its
 sub-package layout (``core``, ``neighbors``, ``ops``, ``fit``,
-``curvature``, ``pipeline``, ``mesh``, ``shapes``, ``io``) so each module's
-counterpart is easy to find. It imports ``torch``, ``numpy`` and, for
+``curvature``, ``pipeline``, ``mesh``, ``shapes``, ``io``, ``validate``)
+so each module's counterpart is easy to find. It imports ``torch``, ``numpy`` and, for
 the hole fill's Delaunay triangulation, ``scipy``; nothing of JAX.
 
 Ported so far:
@@ -31,7 +31,9 @@ Ported so far:
   (the C++ ball pivoting of ``native/bpa.cpp``, built with g++ at first
   use) and the file formats of ``io`` (``load_points``, PLY, VTK, txt,
   ASC);
-- the analytic shapes and oracles of ``shapes`` (own numpy copies).
+- the analytic shapes and oracles of ``shapes`` (own numpy copies);
+- the validation protocol, ``validate`` (``validate_cloud``,
+  ``run_sweep``, ``run_scans``), which drives the paths above.
 
 The kernels are hand-written CUDA C++ for ``sm_90a``, built with nvcc at
 first use. Entry points run on ``cuda`` unless the caller passes
@@ -48,3 +50,5 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from pct_tpu_torch.core.cloud import PointCloud  # noqa: E402,F401

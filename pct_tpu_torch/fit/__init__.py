@@ -11,4 +11,8 @@ from pct_tpu_torch.fit.quadratic import (  # noqa: F401
     fit_quadratic_lstsq_oracle,
     quadratic_design,
 )
-from pct_tpu_torch.fit.quadric import fit_quadric, smallest_eigvec_10  # noqa: F401
+from pct_tpu_torch.fit.quadric import (  # noqa: F401
+    fit_quadric,
+    quadric_design,
+    smallest_eigvec_10,
+)

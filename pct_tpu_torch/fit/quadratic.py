@@ -64,6 +64,9 @@ def cholesky_solve(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return cholesky_apply(cholesky_factor(G), rhs)
 
 
+cholesky_solve6 = cholesky_solve   # the JAX package's back-compat alias
+
+
 def fit_quadratic(rotated: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """(..., k, 3) rotated neighborhoods -> (..., 6) coefficients

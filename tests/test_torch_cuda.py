@@ -592,3 +592,61 @@ def test_mesh_pipeline_card_vs_cpu(cuda):
         torch.from_numpy(np.abs(want.K)), torch.from_numpy(want.H)).stretching)
     assert abs(g.stretching - w.stretching) <= 1e-4 * mass
     assert not np.isnan(got.K).any() and not np.isnan(got.H).any()
+
+
+# --- the validation harness on the card against its CPU run -----------------
+
+@pytest.mark.parametrize("mode", ["mesh_free", "mesh"])
+def test_validate_cloud_card_vs_cpu(cuda, mode):
+    """``validate_cloud`` on the card and on the CPU, held to the harness
+    tolerances of tests/test_torch_validate.py: mesh-free (the study and
+    ``fast_curvature`` k=20 on the perturbed 3000-point torus, the coords
+    kernel) area and bending to 1e-4 relative, the cancelling stretching
+    to 1e-4 of Σ|K|·a; the mesh protocol (k=12 on the 2000-point sphere:
+    the moments, rows and coords kernels) to 1e-4 relative, the
+    stretching to 1e-4 of Σ|K|_f·A_f (Taubin's float atomics, as in
+    ``test_mesh_pipeline_card_vs_cpu``)."""
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.mesh import mesh_energies
+    from pct_tpu_torch.ops.moments import knn_moments as mom
+    from pct_tpu_torch.pipeline import create_mesh_with_curvature
+    from pct_tpu_torch.pipeline import fast_curvature
+    from pct_tpu_torch.shapes import generate_shape
+    from pct_tpu_torch.validate import validate_cloud
+
+    if mode == "mesh_free":
+        pts = generate_shape("torus", 3000, perturbation_strength=1e-3,
+                             seed=0)[1]
+        kw = dict(shape="torus", radius=1.0, k_neighbors=20, auto_k=True,
+                  use_mesh=False)
+    else:
+        pts, _ = generate_shape("sphere", 2000, radius=1.0)
+        kw = dict(shape="sphere", radius=1.0, k_neighbors=12, auto_k=False,
+                  outlier_filter=True)
+    before = (mom.launches, knn_select_rows.launches,
+              knn_select_coords.launches)
+    got = validate_cloud(pts, device=cuda, **kw)
+    assert knn_select_coords.launches > before[2]
+    if mode == "mesh":
+        assert mom.launches > before[0]
+        assert knn_select_rows.launches > before[1]
+    want = validate_cloud(pts, device="cpu", **kw)
+    assert got.aborted == want.aborted == ""
+    assert got.nan_fraction == want.nan_fraction == 0.0
+    assert got.study_kmax == want.study_kmax
+    assert abs(got.converged_k - want.converged_k) <= 2
+    assert list(got.stage_timings) == list(want.stage_timings)
+    for f in ("total_area", "bending_energy"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert abs(g - w) <= 1e-4 * abs(w), f
+    n = len(pts)
+    if mode == "mesh_free":
+        r = fast_curvature(from_numpy(pts, device="cpu"), 20, device="cpu")
+        a = np.pi * r.kth_dist[:n].numpy() ** 2 / 20
+        mass = float(np.sum(np.abs(r.curv.K[:n].numpy()) * a))
+    else:
+        m = create_mesh_with_curvature(pts, k_neighbors=12, device="cpu")
+        mass = float(mesh_energies(
+            torch.from_numpy(m.vertices), torch.from_numpy(m.faces),
+            torch.from_numpy(np.abs(m.K)), torch.from_numpy(m.H)).stretching)
+    assert abs(got.stretching_energy - want.stretching_energy) <= 1e-4 * mass

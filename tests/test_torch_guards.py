@@ -132,7 +132,11 @@ NEW_MODULES = ["pct_tpu_torch.experimental",
                "pct_tpu_torch.io.vtk",
                "pct_tpu_torch.mesh.boundary",
                "pct_tpu_torch.mesh.reconstruct",
-               "pct_tpu_torch.pipeline.mesh_pipeline"]
+               "pct_tpu_torch.pipeline.mesh_pipeline",
+               "pct_tpu_torch.validate",
+               "pct_tpu_torch.validate.harness",
+               "pct_tpu_torch.validate.sweep",
+               "pct_tpu_torch.validate.scans"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -186,6 +190,39 @@ def test_mesh_path_defaults_to_cuda(monkeypatch):
         reconstruct_cloud(pts)
     with pytest.raises(RuntimeError, match="cuda"):
         reconstruct_cloud(pts, normals=pts)
+
+
+def test_validate_defaults_to_cuda(monkeypatch, tmp_path):
+    """The harness, the sweep, the scans and both command lines run on ``cuda``
+    unless told otherwise, and raise without a card before any row or
+    file is written."""
+    from pct_tpu_torch.io import write_ply
+    from pct_tpu_torch.validate import run_scans, run_sweep, scans, sweep
+    from pct_tpu_torch.validate import validate_cloud
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
+    scan_dir = tmp_path / "scans"
+    scan_dir.mkdir()
+    write_ply(str(scan_dir / "cloud.ply"), pts)
+    before = sorted(p.name for p in tmp_path.iterdir())
+    with pytest.raises(RuntimeError, match="cuda"):
+        validate_cloud(pts, output_dir=str(tmp_path / "artifacts"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        validate_cloud(pts, use_mesh=False, auto_k=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_sweep([64], [1.0], ["sphere"], out_csv=str(tmp_path / "s.csv"),
+                  backup_csv=str(tmp_path / "b.csv"), use_mesh=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_scans(str(scan_dir), out_csv=str(tmp_path / "scans.csv"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweep.main(["--points", "64", "--radii", "1", "--shapes", "sphere",
+                    "--out", str(tmp_path / "main.csv")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        scans.main(["--dir", str(scan_dir), "--out",
+                    str(tmp_path / "main_scans.csv")])
+    assert sorted(p.name for p in tmp_path.iterdir()) == before
 
 
 def test_build_cache_keys_on_shared_headers(tmp_path, monkeypatch):

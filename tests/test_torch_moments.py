@@ -9,8 +9,9 @@
 (c) The slice on carried state: ``fused_curvature(engine="moments")``
     against the JAX one (its XLA path on the CPU) at k=100.
 (d) The public path: ``fast_curvature(k=100)`` against the JAX one.
-(e) ``split_cells`` and ``probe_grid_buckets(split_to=...)`` against the
-    JAX tables, split against unsplit, and the engine choice at k < 64.
+
+The split layout and the engine choice at k < 64 are in
+tests/test_torch_moments_engine.py.
 
 The torus is perturbed for the near-tie reason given in
 tests/test_torch_fused.py.
@@ -37,7 +38,7 @@ from pct_tpu_torch.fit.frames import rodrigues_to_z
 from pct_tpu_torch.neighbors import cellknn
 from pct_tpu_torch.neighbors.grid import build_grid
 from pct_tpu_torch.ops.moments import knn_moments, stats_agreement
-from pct_tpu_torch.pipeline import fast_curvature, fused_curvature, plan_engine
+from pct_tpu_torch.pipeline import fast_curvature, fused_curvature
 from pct_tpu_torch.shapes import generate_shape
 
 K_MOM = 100
@@ -46,15 +47,6 @@ K_MOM = 100
 def _torus():
     return generate_shape("torus", 3000, perturbation_strength=1e-3,
                           seed=1)[1]
-
-
-def _shell_cluster():
-    """Sparse shell + one dense cluster: the cluster cell holds a few
-    hundred points (tests/test_moments.py's split fixture)."""
-    rng = np.random.default_rng(3)
-    shell, _ = generate_shape("sphere", 1000, radius=1.0)
-    cluster = (0.02 * rng.standard_normal((320, 3)) + 0.5).astype(np.float32)
-    return np.concatenate([np.asarray(shell, np.float32), cluster])
 
 
 def _t(a):
@@ -313,113 +305,3 @@ def test_fast_curvature_k100_matches_jax_public_path(carried):
     pts, n, _, _ = carried
     _, e_t = _public_paths_agree(pts, K_MOM)
     assert e_t.mean() > 0.99
-
-
-# ---- (e) split layout and engine choice -----------------------------------
-
-@pytest.fixture(scope="module")
-def shell_cluster():
-    pts = _shell_cluster()
-    cj = jax_from_numpy(pts)
-    k = 72
-    cell = jax_cell_size(cj.points, cj.num_points, k)
-    jgrid = jax_build_grid(cj.points, cj.num_points, cell)
-    state = from_reference_arrays(np.asarray(cj.points), len(pts),
-                                  cell_size=cell, k=k, device="cpu")
-    grid = build_grid(state.cloud.points, len(pts), state.cell_size)
-    return pts, k, jgrid, grid, state
-
-
-def test_probe_split_to_matches_jax(shell_cluster):
-    _, k, jgrid, grid, state = shell_cluster
-    for split_to in (128, 64):
-        s_j, mc_j, f_j = jck.probe_grid_buckets(jgrid, capacity_cap=4 * k,
-                                                split_to=split_to)
-        s_t, mc_t, f_t = cellknn.probe_grid_buckets(grid, capacity_cap=4 * k,
-                                                    split_to=split_to)
-        assert f_t == f_j > 1 and mc_t == mc_j
-        assert [tuple(s) for s in s_t] == [tuple(s) for s in s_j]
-        assert all(sp.capacity <= split_to for sp in s_t)
-    # a k >= 64 state probes the moments route and carries its factor
-    s128 = cellknn.probe_grid_buckets(grid, capacity_cap=4 * k,
-                                      split_to=128)
-    assert state.bucket_spec == s128[0] and state.split_factor == s128[2]
-    assert cellknn.probe_grid_buckets(grid, capacity_cap=4 * k,
-                                      split_to=4096)[2] == 1
-
-
-def test_split_cells_matches_jax(shell_cluster):
-    _, k, jgrid, grid, _ = shell_cluster
-    _, mc, factor = cellknn.probe_grid_buckets(grid, capacity_cap=4 * k,
-                                               split_to=128)
-    n = grid.sorted_points.shape[0]
-    sc_j = jck.split_cells(jck.compact_cells(jgrid, mc), n, 128, factor)
-    sc_t = cellknn.split_cells(cellknn.compact_cells(grid, mc), n, 128,
-                               factor)
-    for a, b in zip(sc_t, sc_j):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert int(sc_t.max_count) <= 128 < int(
-        cellknn.compact_cells(grid, mc).max_count)
-    # the run table resolves duplicate ids to the first copy
-    rs_s, rl_s = cellknn._runs_table(grid, sc_t)
-    rs_j, rl_j = jck._runs_table(jgrid, sc_j)
-    np.testing.assert_array_equal(rs_s.numpy(), np.asarray(rs_j))
-    np.testing.assert_array_equal(rl_s.numpy(), np.asarray(rl_j))
-
-
-def test_split_cells_moments_matches_unsplit(shell_cluster):
-    """The virtual split is a pure layout change: split and unsplit runs
-    agree on ``exact`` row for row and on K of certified rows."""
-    pts, k, _, grid, state = shell_cluster
-    n = len(pts)
-    spec_s, mc_s, factor = cellknn.probe_grid_buckets(
-        grid, capacity_cap=4 * k, split_to=128)
-    spec_u, mc_u = cellknn.probe_grid_buckets(grid, capacity_cap=512)
-    kw = dict(engine="moments", device="cpu")
-    r_s = fused_curvature(state.cloud.points, n, state.cell_size, k,
-                          bucket_spec=spec_s, max_cells=mc_s,
-                          split=(128, factor), **kw)
-    r_u = fused_curvature(state.cloud.points, n, state.cell_size, k,
-                          bucket_spec=spec_u, max_cells=mc_u, **kw)
-    e = r_s.exact[:n].numpy()
-    np.testing.assert_array_equal(e, r_u.exact[:n].numpy())
-    assert e.mean() > 0.5 and e.sum() > 500
-    np.testing.assert_allclose(r_s.curv.K[:n].numpy()[e],
-                               r_u.curv.K[:n].numpy()[e], rtol=2e-4,
-                               atol=1e-5)
-
-
-def test_list_engine_ok_matches_jax():
-    grid = [(c, m, k) for c in (8, 32, 128, 256, 400)
-            for m in (200, 760, 1000, 1500, 3000, 6000)
-            for k in (1, 20, 31, 32, 48, 63)]
-    got = [cellknn.list_engine_ok(c, m, k) for c, m, k in grid]
-    want = [jck.pallas_select_ok(c, m, k) for c, m, k in grid]
-    assert got == want
-    assert any(got) and not all(got)
-
-
-def test_fast_curvature_takes_moments_where_jax_does():
-    """At k=48 the shell+cluster cloud's list-engine spec is refused by
-    both packages' rule, so both run the moments engine."""
-    k = 48
-    pts = _shell_cluster()
-    cj = jax_from_numpy(pts)
-    cell = jax_cell_size(cj.points, cj.num_points, k)
-    spec_j, _ = jck.probe_grid_buckets(
-        jax_build_grid(cj.points, cj.num_points, cell), capacity_cap=256)
-    assert not all(jck.pallas_select_ok(s.capacity, s.cand_cap, k)
-                   for s in spec_j)
-    state = from_reference_arrays(np.asarray(cj.points), len(pts),
-                                  cell_size=cell, k=k, device="cpu")
-    grid = build_grid(state.cloud.points, len(pts), state.cell_size)
-    spec_t, _ = cellknn.probe_grid_buckets(grid, capacity_cap=256)
-    assert [tuple(s) for s in spec_t] == [tuple(s) for s in spec_j]
-    assert not all(cellknn.list_engine_ok(s.capacity, s.cand_cap, k)
-                   for s in spec_t)
-    engine, spec, _, factor = plan_engine(grid, k)
-    assert engine == "moments" and state.bucket_spec == spec
-    assert state.split_factor == factor > 1
-    before = knn_moments.launches
-    _public_paths_agree(pts, k)
-    assert knn_moments.launches == before      # CPU tensors: no kernel

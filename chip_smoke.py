@@ -58,7 +58,7 @@ without printing its result line:
       with an all-True mask (K as unmasked) and with the farthest half
       of every row masked (no NaN);
 6. timings, each printed beside the card's name and power limit (after
-   phases 7 and 8, which print their own);
+   phases 7 to 10, which print their own);
 7. the device half of the mesh path:
    a. ``estimate_and_orient_normals(cloud, k=50)`` on the same cloud
       (hierarchical): on every bucket of the layouts ``plan_normals``
@@ -105,9 +105,28 @@ without printing its result line:
       study tolerance 1e-2) on the torus written as a points-only binary
       PLY: two ok rows with equal energies, the moments kernel launched
       as in phase 4b each run;
-10. the kernel table (one JSON line; each kernel's ``mesh_path`` lists
+10. the distributed layer (``pct_tpu_torch.distributed``) in a NCCL
+    world of one on cuda:0 (``make_mesh()``; the process group is
+    destroyed after the phase), same cloud, each path driven with the
+    counts set to 0 just before it:
+    a. ``sharded_curvature(k=20)`` on ``plan_engine``'s list layout:
+       coords launches as phase 3b, every output bit-identical to
+       ``fused_curvature`` on the same layout, the reduced stats (NaN
+       0, mean |K| beside the result's), exact and K error as in 3b,
+       the warm wall beside ``fused_curvature``'s on that layout and
+       phase 3b's;
+    b. the same at k=100 on the moments engine and its split layout:
+       moments launches as phase 4b, bit-identical, K error as in 4b;
+    c. ``slab_curvature_unsorted(k=20)`` at the probed halo, then with
+       ``distributed_sort=True``: bit-identical to each other, exact
+       equal to the un-bucketed ``fused_curvature`` on the same
+       axis-permuted points and cell size, K within rtol 1e-5 and atol
+       1e-7 (bit-equal rows counted), one coords launch a call, the
+       walls beside that ``fused_curvature``'s;
+11. the kernel table (one JSON line; each kernel's ``mesh_path`` lists
    its records at phase 7's and phase 8's shapes, ``validation`` its
-   launches in phase 9) and the result line.
+   launches in phase 9, ``distributed`` its launches in 10a-10c) and the
+   result line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -1531,6 +1550,134 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
             "select_pos": {}, "band_select": {}}
 
 
+def same_bits(a, b):
+    """Equal shapes and equal bits (float32 compared as int32, so NaN
+    payloads and signed zeros count too)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def fused_outputs(res):
+    """(name, tensor) of every per-point output of a fused-style result."""
+    return [*zip(("K", "H", "k1", "k2", "H2"), res.curv),
+            ("normals", res.normals), ("exact", res.exact),
+            ("kth_dist", res.kth_dist)]
+
+
+def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
+    """Phase 10: the distributed layer in a NCCL world of one on cuda:0.
+    ``walls20`` and ``walls100`` are phase 3b's and 4b's
+    ``fast_curvature`` walls. Returns each kernel's launches in 10a-10c."""
+    import torch
+    import torch.distributed as dist
+
+    from pct_tpu_torch.distributed import (
+        make_mesh,
+        sharded_curvature,
+        slab_curvature_unsorted,
+    )
+    from pct_tpu_torch.distributed.slab import best_axis_order
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+    from pct_tpu_torch.pipeline import fused_curvature
+    from pct_tpu_torch.pipeline.fused import SPLIT_TO, plan_engine
+
+    t_phase = time.perf_counter()
+    n = cloud.num_points
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and mesh.size() == 1
+          and mesh.device_type == "cuda", "make_mesh(): a NCCL world of one")
+    log(f"[{label}] phase 10: {mesh}, backend {dist.get_backend()}")
+    launches, walls = {}, {}
+
+    # --- 10a / 10b. sharded_curvature on fast_curvature's own layouts ---
+    for tag, k, want_engine, limit, phase_walls in (
+            ("10a", K_LIST, "list", 1.5e-3, walls20),
+            ("10b", K_MOM, "moments", 1.0e-3, walls100)):
+        cell = estimate_cell_size(cloud.points, n, k)
+        engine, spec, mc, factor = plan_engine(
+            build_grid(cloud.points, n, cell), k)
+        check(engine == want_engine, f"{tag}: k={k} plans the {want_engine} "
+              "engine")
+        kw = dict(bucket_spec=spec, max_cells=mc, engine=engine,
+                  split=(SPLIT_TO, factor))
+        kernel = "select_coords" if engine == "list" else "moments"
+        res, w, got = drive(
+            lambda: sharded_curvature(mesh, cloud.points, n, cell, k, **kw),
+            f"{tag} sharded_curvature k={k}", counters,
+            {**none, kernel: len(spec)})
+        launches[tag], walls[tag] = got, w
+        ref, w_ref, _ = drive(
+            lambda: fused_curvature(cloud.points, n, cell, k, **kw),
+            f"{tag} fused_curvature k={k}", counters,
+            {**none, kernel: len(spec)})
+        for name, a in fused_outputs(res):
+            check(same_bits(a, dict(fused_outputs(ref))[name]),
+                  f"{tag}: {name} bit-identical to fused_curvature on the "
+                  "same layout")
+        mean_K = float(res.curv.K[:n][res.exact[:n]].abs().mean())
+        log(f"[{label}] {tag} sharded_curvature k={k} ({engine}, "
+            f"{len(spec)} buckets, split factor {factor}): every output "
+            f"bit-identical to fused_curvature; stats mean |K| "
+            f"{float(res.stats.mean_abs_K):.6f} (the result's, certified "
+            f"rows: {mean_K:.6f}), mean |H| {float(res.stats.mean_abs_H):.6f}"
+            f", NaN fraction {float(res.stats.nan_fraction)}")
+        check(float(res.stats.nan_fraction) == 0.0, f"{tag}: stats NaN 0")
+        accuracy(res, cloud, pts, k, limit)
+        log(f"[{label}] {tag} sharded_curvature k={k}: warm wall "
+            f"{statistics.median(w[1:]):.4f} s/call (cold {w[0]:.3f} s); "
+            f"fused_curvature on the same layout "
+            f"{statistics.median(w_ref[1:]):.4f} s; fast_curvature (phase "
+            f"3b/4b) {statistics.median(phase_walls[1:]):.4f} s")
+        del res, ref
+
+    # --- 10c. the slab path: probed halo, then the distributed sort ---
+    outs = {}
+    for tag, kw in (("10c", {}), ("10c_sort", {"distributed_sort": True})):
+        out, w, got = drive(
+            lambda: slab_curvature_unsorted(mesh, cloud, K_LIST, **kw),
+            f"{tag} slab_curvature_unsorted k={K_LIST}", counters,
+            {**none, "select_coords": 1})
+        launches[tag], walls[tag], outs[tag] = got, w, out
+        log(f"[{label}] {tag} slab_curvature_unsorted k={K_LIST} {kw}: warm "
+            f"wall {statistics.median(w[1:]):.4f} s/call (cold {w[0]:.3f} s)")
+    curv_r, nrm_r, ex_r = outs["10c"]
+    curv_d, nrm_d, ex_d = outs["10c_sort"]
+    check(all(same_bits(a, b) for a, b in zip(
+        (*curv_r, nrm_r, ex_r), (*curv_d, nrm_d, ex_d))),
+        "10c: the distributed sort's slab result bit-identical to the "
+        "replicated sort's")
+    order = best_axis_order(cloud.points, n)
+    cell = estimate_cell_size(cloud.points, n, K_LIST)
+    single, w_ref, _ = drive(
+        lambda: fused_curvature(cloud.points[:, list(order)], n, cell,
+                                K_LIST),
+        f"10c un-bucketed fused_curvature k={K_LIST}", counters,
+        {**none, "select_coords": 1})
+    e_s, e_1 = ex_r[:n], single.exact[:n]
+    K_s, K_1 = curv_r.K[:n], single.curv.K[:n]
+    close = torch.isclose(K_s, K_1, rtol=1e-5, atol=1e-7)
+    bit_rows = int((K_s.view(torch.int32) == K_1.view(torch.int32)).sum())
+    log(f"[{label}] 10c: the un-bucketed fused_curvature on the permuted "
+        f"points: warm wall {statistics.median(w_ref[1:]):.4f} s/call")
+    log(f"[{label}] 10c: axis order {order}, exact {float(e_s.float().mean())}"
+        f" (un-bucketed fused_curvature: {float(e_1.float().mean())}), "
+        f"rows differing in exact {int((e_s != e_1).sum())}; K bit-equal on "
+        f"{bit_rows} of {n} rows, within rtol 1e-5 atol 1e-7 on "
+        f"{int(close.sum())}, max |dK| {float((K_s - K_1).abs().max()):.3e}")
+    check(bool(torch.equal(e_s, e_1)), "10c: exact equal to the un-bucketed "
+          "fused_curvature on the permuted points")
+    check(bool(close.all()), "10c: K within rtol 1e-5, atol 1e-7")
+    del outs, curv_r, curv_d, single
+    dist.destroy_process_group()
+    check(not dist.is_initialized(), "phase 10: process group destroyed")
+    log(f"[{label}] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return {name: {tag: got[name] for tag, got in launches.items()}
+            for name in counters}, walls
+
+
 def mesh_record(rec, flops=None):
     """A kernel's record at one of phase 7's shapes, per call of the
     driven entry point, with its buckets."""
@@ -1747,6 +1894,10 @@ def main():
     validation = validation_phase(label, pts, counters, none, mesh_path,
                                   len(spec20), len(spec100))
 
+    # --- 10. the distributed layer, a NCCL world of one ---
+    distributed, dist_walls = distributed_phase(
+        label, cloud, pts, counters, none, walls20, walls100)
+
     # --- 6. numbers ---
     for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
                         (f"fast_curvature k={K_MOM}", walls100),
@@ -1854,9 +2005,15 @@ def main():
 
     for r in rows:
         r["validation"] = validation[r["name"]]
-        log(f"[{label}] {r['name']} launches in phase 9: {r['validation']}")
+        r["distributed"] = distributed[r["name"]]
+        log(f"[{label}] {r['name']} launches in phase 9: {r['validation']}, "
+            f"in phase 10: {r['distributed']}")
+    for tag, walls in dist_walls.items():
+        log(f"[{label}] phase {tag}, 1M torus: warm wall "
+            f"{statistics.median(walls[1:]):.4f} s/call (median of "
+            f"{len(walls) - 1}; cold first call {walls[0]:.3f} s)")
 
-    # --- 10. result ---
+    # --- 11. result ---
     log(f"[{label}] chip_smoke.py: {time.perf_counter() - t_start:.1f} s "
         "from start to the result")
     log(f"kernels: {[r['name'] for r in rows]}")

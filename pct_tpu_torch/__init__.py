@@ -2,7 +2,8 @@
 
 The JAX package ``pct_tpu`` stays the reference; this package mirrors its
 sub-package layout (``core``, ``neighbors``, ``ops``, ``fit``,
-``curvature``, ``pipeline``, ``mesh``, ``shapes``, ``io``, ``validate``)
+``curvature``, ``pipeline``, ``mesh``, ``shapes``, ``io``, ``validate``,
+``distributed``)
 so each module's counterpart is easy to find. It imports ``torch``, ``numpy`` and, for
 the hole fill's Delaunay triangulation, ``scipy``; nothing of JAX.
 
@@ -33,7 +34,10 @@ Ported so far:
   ASC);
 - the analytic shapes and oracles of ``shapes`` (own numpy copies);
 - the validation protocol, ``validate`` (``validate_cloud``,
-  ``run_sweep``, ``run_scans``), which drives the paths above.
+  ``run_sweep``, ``run_scans``), which drives the paths above;
+- the distributed layer, ``distributed`` (``sharded_curvature``, the
+  slab path with its halo exchange, the sample-sort grid build) on
+  ``torch.distributed``: NCCL on the card, gloo on the CPU.
 
 The kernels are hand-written CUDA C++ for ``sm_90a``, built with nvcc at
 first use. Entry points run on ``cuda`` unless the caller passes

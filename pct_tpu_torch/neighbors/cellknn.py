@@ -455,6 +455,44 @@ def bucketed_tile_args(grid: GridIndex, cells: CellTable, spec):
         spec, _bucket_tables(grid, cells, spec))]
 
 
+def cellwise_bucket_rows(grid: GridIndex, cells: CellTable, k: int,
+                         fn: Callable | None, spec, runner=None,
+                         post_fn: Callable | None = None,
+                         share: Callable | None = None):
+    """The cell loop of ``apply_cellwise_bucketed`` up to its final move:
+    flat per-query rows, bucket after bucket in tile order.
+
+    ``share`` maps each bucket's member-table args (cell_id, start,
+    count, rs, run_len, run_overflow) to the rows this call runs, still
+    one kernel call a bucket (the distributed layer passes each rank's
+    share of the table); None runs every row.
+
+    Returns (outputs tuple of (rows, ...) after ``post_fn``, exact
+    (rows,) with the cell table's overflow folded in, kth (rows,), dest
+    (rows,) each row's original point index, n where the slot holds no
+    query).
+    """
+    if runner is None:
+        runner = cellwise_tile_runner
+    n = grid.sorted_points.shape[0]
+    outs, exacts, kths, dests = [], [], [], []
+    for sp, args in bucketed_tile_args(grid, cells, spec):
+        if share is not None:
+            args = share(args)
+        run = runner(grid, k, sp.capacity, sp.cand_cap, fn)
+        out, exact, kth, qrow, ok_q = run(args)
+        dest_rows = grid.order[qrow.reshape(-1).long()]
+        dests.append(torch.where(ok_q.reshape(-1), dest_rows, n))
+        outs.append(tuple(a.reshape((-1,) + a.shape[2:]) for a in out))
+        exacts.append(exact.reshape(-1))
+        kths.append(kth.reshape(-1))
+    out = tuple(torch.cat(xs) for xs in zip(*outs))
+    if post_fn is not None:
+        out = post_fn(out)
+    exact = torch.cat(exacts) & ~cells.overflow
+    return out, exact, torch.cat(kths), torch.cat(dests)
+
+
 def apply_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
                             fn: Callable | None, spec, runner=None,
                             post_fn: Callable | None = None):
@@ -474,23 +512,10 @@ def apply_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
 
     Returns (outputs tuple of (n, ...), exact (n,), kth_dist (n,)).
     """
-    if runner is None:
-        runner = cellwise_tile_runner
-    n = grid.sorted_points.shape[0]
-    outs, exacts, kths, dests = [], [], [], []
-    for sp, args in bucketed_tile_args(grid, cells, spec):
-        run = runner(grid, k, sp.capacity, sp.cand_cap, fn)
-        out, exact, kth, qrow, ok_q = run(args)
-        dest_rows = grid.order[qrow.reshape(-1).long()]
-        dests.append(torch.where(ok_q.reshape(-1), dest_rows, n))
-        outs.append(tuple(a.reshape((-1,) + a.shape[2:]) for a in out))
-        exacts.append(exact.reshape(-1))
-        kths.append(kth.reshape(-1))
-    out = tuple(torch.cat(xs) for xs in zip(*outs))
-    if post_fn is not None:
-        out = post_fn(out)
-    exact = torch.cat(exacts) & ~cells.overflow
-    return _scatter_outputs(n, torch.cat(dests), out, exact, torch.cat(kths))
+    out, exact, kth, dest = cellwise_bucket_rows(grid, cells, k, fn, spec,
+                                                 runner, post_fn)
+    return _scatter_outputs(grid.sorted_points.shape[0], dest, out, exact,
+                            kth)
 
 
 _TILE_CELLS = 128                # cell-table rounding

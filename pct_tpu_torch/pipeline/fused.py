@@ -1,8 +1,9 @@
 """Fused pipeline: grid build → kNN → frames → fit → curvature.
 
 Port of ``pct_tpu.pipeline.fused``. Curvature is evaluated inside the
-bucketed cell loop (``neighbors.cellknn.apply_cellwise_bucketed``); only
-the per-point outputs are moved, directly to the caller's point order.
+bucketed cell loop (``neighbors.cellknn.cellwise_bucket_rows``, the loop
+of ``apply_cellwise_bucketed``); only the per-point outputs are moved,
+directly to the caller's point order.
 
 - The list engine takes each query's neighborhood straight from the
   select's winner coordinates and runs frames → fit → curvature on it,
@@ -27,8 +28,9 @@ from pct_tpu_torch.core.device import resolve_device
 from pct_tpu_torch.curvature.explicit import Curvatures
 from pct_tpu_torch.fit.moments import curvature_from_moments_chunked
 from pct_tpu_torch.neighbors.cellknn import (
+    _scatter_outputs,
     all_points_spec,
-    apply_cellwise_bucketed,
+    cellwise_bucket_rows,
     compact_cells,
     default_max_cells,
     list_engine_ok,
@@ -92,21 +94,43 @@ def _check_slice(k: int, method: str, engine: str | None = None):
             "neighbors; larger k takes engine='moments'")
 
 
-def _fused_on_grid(grid: GridIndex, k: int, max_cells: int, bucket_spec,
-                   engine: str = "list", split=None, method: str = "explicit",
-                   implicit_mode: str = "exact") -> FusedResult:
+def _fused_rows(grid: GridIndex, k: int, max_cells: int, bucket_spec,
+                engine: str = "list", split=None, method: str = "explicit",
+                implicit_mode: str = "exact", share=None):
+    """The cell table and the engine's cell loop on ``grid``, up to the
+    final move: ``cellknn.cellwise_bucket_rows``' flat rows (K, H, k1,
+    k2, H², normals), of the ``share`` of every bucket's table."""
     cells = compact_cells(grid, max_cells)
     if split is not None and split[1] > 1:
         cells = split_cells(cells, grid.sorted_points.shape[0], *split)
     if engine == "moments":
-        out, exact, kth = apply_cellwise_bucketed(
+        return cellwise_bucket_rows(
             grid, cells, k, None, bucket_spec, runner=moments_tile_runner,
-            post_fn=_moments_epilogue)
-    else:
-        out, exact, kth = apply_cellwise_bucketed(
-            grid, cells, k, _list_fn(method, implicit_mode), bucket_spec)
-    *curv, normals = out
+            post_fn=_moments_epilogue, share=share)
+    return cellwise_bucket_rows(
+        grid, cells, k, _list_fn(method, implicit_mode), bucket_spec,
+        share=share)
+
+
+def _fused_on_grid(grid: GridIndex, k: int, max_cells: int, bucket_spec,
+                   engine: str = "list", split=None, method: str = "explicit",
+                   implicit_mode: str = "exact") -> FusedResult:
+    out, exact, kth, dest = _fused_rows(grid, k, max_cells, bucket_spec,
+                                        engine, split, method, implicit_mode)
+    (*curv, normals), exact, kth = _scatter_outputs(
+        grid.sorted_points.shape[0], dest, out, exact, kth)
     return FusedResult(Curvatures(*curv), normals, exact, kth)
+
+
+def _layout(n: int, k: int, bucket_spec, max_cells, capacity, cand_cap):
+    """(bucket_spec, max_cells) of a ``fused_curvature`` call: the one
+    bucket of ``all_points_spec`` without a spec, else the spec with
+    ``max_cells`` defaulting to ``default_max_cells``."""
+    if bucket_spec is None:
+        return all_points_spec(n, k, capacity, max_cells, cand_cap)
+    if max_cells is None:
+        max_cells = default_max_cells(n, k)
+    return bucket_spec, max_cells
 
 
 def fused_curvature(points: torch.Tensor, num_points: int,
@@ -140,11 +164,8 @@ def fused_curvature(points: torch.Tensor, num_points: int,
     """
     _check_slice(k, method, engine)
     dev = resolve_device(device)
-    if bucket_spec is None:
-        bucket_spec, max_cells = all_points_spec(
-            points.shape[0], k, capacity, max_cells, cand_cap)
-    elif max_cells is None:
-        max_cells = default_max_cells(points.shape[0], k)
+    bucket_spec, max_cells = _layout(points.shape[0], k, bucket_spec,
+                                     max_cells, capacity, cand_cap)
     grid = build_grid(points.to(dev), num_points, cell_size.to(dev))
     return _fused_on_grid(grid, k, max_cells, bucket_spec, engine, split,
                           method, implicit_mode)

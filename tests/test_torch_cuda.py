@@ -650,3 +650,92 @@ def test_validate_cloud_card_vs_cpu(cuda, mode):
             torch.from_numpy(m.vertices), torch.from_numpy(m.faces),
             torch.from_numpy(np.abs(m.K)), torch.from_numpy(m.H)).stretching)
     assert abs(got.stretching_energy - want.stretching_energy) <= 1e-4 * mass
+
+
+# --- the distributed layer in a NCCL world of one ---------------------------
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """``make_mesh()``: a NCCL world of one on cuda:0, destroyed after the
+    module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    import torch.distributed as dist
+
+    from pct_tpu_torch.distributed import make_mesh
+
+    mesh = make_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [20, 100], ids=["list", "moments"])
+def test_sharded_curvature_world_of_one_bit_identical(card_mesh, k):
+    """``sharded_curvature`` on ``plan_engine``'s layout of a 20k torus is
+    ``fused_curvature`` on that layout bit for bit, with one launch a
+    bucket of the engine's kernel."""
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.distributed import sharded_curvature
+    from pct_tpu_torch.neighbors.grid import estimate_cell_size
+    from pct_tpu_torch.ops.moments import knn_moments as mom
+    from pct_tpu_torch.pipeline import fused_curvature
+    from pct_tpu_torch.pipeline.fused import SPLIT_TO, plan_engine
+
+    c = from_numpy(_torus_cloud(20000), device="cuda")
+    cell = estimate_cell_size(c.points, c.num_points, k)
+    engine, spec, mc, factor = plan_engine(
+        build_grid(c.points, c.num_points, cell), k)
+    assert engine == ("list" if k < 64 else "moments")
+    kw = dict(bucket_spec=spec, max_cells=mc, engine=engine,
+              split=(SPLIT_TO, factor))
+    counter = knn_select_coords if engine == "list" else mom
+    before = counter.launches
+    got = sharded_curvature(card_mesh, c.points, c.num_points, cell, k, **kw)
+    assert counter.launches - before == len(spec)
+    want = fused_curvature(c.points, c.num_points, cell, k, **kw)
+    for a, b in zip((*got.curv, got.normals, got.exact, got.kth_dist),
+                    (*want.curv, want.normals, want.exact, want.kth_dist)):
+        assert _same_bits(a, b)
+    assert float(got.stats.nan_fraction) == 0.0
+    assert float(got.stats.mean_abs_K) > 0.5
+
+
+def test_slab_world_of_one_matches_fused(card_mesh):
+    """``slab_curvature_unsorted`` (probed halo, one coords launch) on the
+    20k torus: the distributed sort's result is the replicated sort's bit
+    for bit; exact equals the un-bucketed ``fused_curvature`` on the same
+    axis-permuted points and cell size, and K agrees to rtol 1e-5, atol
+    1e-7. The un-bucketed layout's default cell table is sized for a
+    surface sampled like the analytic torus (tests/test_slab.py); on the
+    perturbed torus of the tests above it overflows and certifies no
+    row, in both paths alike."""
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.distributed import slab_curvature_unsorted
+    from pct_tpu_torch.distributed.slab import best_axis_order
+    from pct_tpu_torch.neighbors.grid import estimate_cell_size
+    from pct_tpu_torch.pipeline import fused_curvature
+    from pct_tpu_torch.shapes import generate_shape
+
+    c = from_numpy(generate_shape("torus", 20000, radius=1.0)[0],
+                   device="cuda")
+    n = c.num_points
+    before = knn_select_coords.launches
+    curv, nrm, ex = slab_curvature_unsorted(card_mesh, c, k=20)
+    assert knn_select_coords.launches - before == 1
+    curv_d, nrm_d, ex_d = slab_curvature_unsorted(card_mesh, c, k=20,
+                                                  distributed_sort=True)
+    for a, b in zip((*curv, nrm, ex), (*curv_d, nrm_d, ex_d)):
+        assert _same_bits(a, b)
+    order = best_axis_order(c.points, n)
+    cell = estimate_cell_size(c.points, n, 20)
+    single = fused_curvature(c.points[:, list(order)], n, cell, 20)
+    assert torch.equal(ex[:n], single.exact[:n])
+    assert float(ex[:n].float().mean()) == 1.0
+    assert torch.isclose(curv.K[:n], single.curv.K[:n], rtol=1e-5,
+                         atol=1e-7).all()

@@ -73,7 +73,8 @@ def test_the_walk_covers_the_ported_modules():
     assert len(MODULES) >= 45
     for name in ("pct_tpu", "pct_tpu.fit", "pct_tpu.validate",
                  "pct_tpu.validate.harness", "pct_tpu.validate.sweep",
-                 "pct_tpu.validate.scans", "pct_tpu.pipeline.mesh_pipeline"):
+                 "pct_tpu.validate.scans", "pct_tpu.pipeline.mesh_pipeline",
+                 "pct_tpu.distributed.sharding"):
         assert name in MODULES, name
 
 

@@ -7,7 +7,8 @@ Phases, in order; any failed check raises and the script exits non-zero
 without printing its result line:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build every CUDA kernel of the port from the checkout's sources;
+2. build every CUDA kernel of the port from the checkout's sources (the
+   eight libraries, each nvcc's seconds and register report printed);
 3. the list engine, k=20, on the 1M-point torus (padded to 1<<16):
    a. the coords select kernel against its plain PyTorch version on
       every occupancy bucket of the main path: bit-identical; beside
@@ -58,7 +59,7 @@ without printing its result line:
       with an all-True mask (K as unmasked) and with the farthest half
       of every row masked (no NaN);
 6. timings, each printed beside the card's name and power limit (after
-   phases 7 to 10, which print their own);
+   phases 7 to 11, which print their own);
 7. the device half of the mesh path:
    a. ``estimate_and_orient_normals(cloud, k=50)`` on the same cloud
       (hierarchical): on every bucket of the layouts ``plan_normals``
@@ -123,10 +124,30 @@ without printing its result line:
        axis-permuted points and cell size, K within rtol 1e-5 and atol
        1e-7 (bit-equal rows counted), one coords launch a call, the
        walls beside that ``fused_curvature``'s;
-11. the kernel table (one JSON line; each kernel's ``mesh_path`` lists
-   its records at phase 7's and phase 8's shapes, ``validation`` its
-   launches in phase 9, ``distributed`` its launches in 10a-10c) and the
-   result line.
+11. the TPU scripts' kernels (``pct_tpu_torch.micro``; no entry point
+    launches them, and every main path above is checked to launch them
+    0 times), each at its script's shapes:
+    a. ``moments_variant``, every mode, on the three k=100 buckets of
+       ``scripts/torch_micro_moments_split.py`` (its operand recipe):
+       columns 35–47 bit-identical to the plain version and the sums
+       within count_le²·2⁻²⁴ (all rows of the first bucket, the first
+       MICRO_CUT_ROWS of the others), ``full`` against ``knn_moments``
+       the same way, tb = 4, 8, 16 bit-identical to tb = 1; each mode's
+       time, the production kernel's, the bound, the plain version's
+       and ``torch.kthvalue`` (τ only);
+    b. ``select_coords_mxu`` at (8192, 128, 504), k=20: every output
+       bit-identical to the plain version (missing slots: slot 0), the
+       distances and found coordinates to ``knn_select_coords``; its
+       time beside that select's, the bound, the plain version and the
+       partial ``torch.topk`` yardstick;
+    c. ``moments_like`` at (8, 266, 1024): bit-identical to the plain
+       version; its time beside ``torch.bmm`` of the product alone (TF32
+       off);
+12. the kernel table (one JSON line, eight kernels, each with the card's
+   name and power limit; each package kernel's ``mesh_path`` lists its
+   records at phase 7's and phase 8's shapes, ``validation`` its
+   launches in phase 9, ``distributed`` its launches in 10a-10c; each
+   script kernel names its ``script``) and the result line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -150,6 +171,8 @@ MEMBER_FLOPS = 70                # 35 mul + 35 add per weighted member
 TIMED_REPS = 5
 PLAIN_BUDGET_S = 60.0            # plain-version time for the k=100 rows check
 CUT_ROWS = 4096                  # cell rows a bucket keeps past that budget
+MICRO_CUT_ROWS = 1024            # rows of the 2nd/3rd script bucket held to
+                                 # the variants' plain versions (phase 11a)
 # The first designs' per-bucket ms on the same buckets of the 1M torus
 # (PERF.md's tables: the one-thread-per-query list and bisection kernels,
 # NVIDIA H100 80GB HBM3, 700 W; select_coords as the list kernel's own
@@ -1678,6 +1701,187 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
             for name in counters}, walls
 
 
+def micro_phase(label, launches):
+    """Phase 11: the TPU scripts' kernels (``pct_tpu_torch.micro``), each
+    held against its plain version at its script's shapes and timed.
+    ``launches`` maps each one's counter to its main-path launches.
+    Returns their three kernel rows."""
+    import numpy as np
+    import torch
+    from pct_tpu_torch.micro.moments_like import (
+        moments_like,
+        moments_like_plain,
+    )
+    from pct_tpu_torch.micro.moments_split import (
+        MODES,
+        SCRIPT_BUCKETS,
+        SCRIPT_K,
+        make_args,
+        moments_variant,
+        moments_variant_plain,
+    )
+    from pct_tpu_torch.micro.select_mxu import (
+        SCRIPT_SHAPE,
+        make_inputs,
+        select_coords_mxu,
+        select_coords_mxu_plain,
+    )
+    from pct_tpu_torch.ops.moments import knn_moments, stats_agreement
+    from pct_tpu_torch.ops.select import knn_select_coords
+
+    t_phase = time.perf_counter()
+    # --- 11a. every moments_variant mode on the script's three buckets ---
+    k = SCRIPT_K
+    per_bucket, max_err, max_ratio = [], 0.0, 0.0
+    by_mode = {m: 0.0 for m in MODES}
+    by_tb = {tb: 0.0 for tb in (4, 8, 16)}
+    prod_ms = 0.0
+    for b, (t, c, m) in enumerate(SCRIPT_BUCKETS):
+        ops = make_args(t, c, m, seed=0, device="cuda")
+        rows = t if b == 0 else MICRO_CUT_ROWS
+        b_ratio = 0.0
+        cut = [a[:rows] for a in ops]
+        prod = knn_moments(*ops, k)
+        for mode in MODES:
+            got = moments_variant(*ops, k, mode=mode)
+            torch.cuda.synchronize()
+            want = moments_variant_plain(*cut, k, mode=mode)
+            d, ratio, err = stats_agreement(got[:rows], want)
+            check(d == 0 and ratio <= 1.0,
+                  f"moments_variant {mode} bucket {b}: columns 35-47 "
+                  f"bit-identical ({d} rows differ), sums within "
+                  f"count_le^2 2^-24 (ratio {ratio:.4g})")
+            max_err, b_ratio = max(max_err, err), max(b_ratio, ratio)
+            if mode == "full":
+                d, ratio, _ = stats_agreement(got, prod)
+                check(d == 0 and ratio <= 1.0, f"moments_variant full bucket "
+                      f"{b} against knn_moments ({d} rows, ratio {ratio:.4g})")
+                full = got
+            by_mode[mode] += event_ms(
+                lambda mode=mode: moments_variant(*ops, k, mode=mode),
+                TIMED_REPS)
+            del got, want
+        for tb in by_tb:
+            check(same_bits(moments_variant(*ops, k, tb=tb), full),
+                  f"moments_variant full tb={tb} bucket {b}: tb=1's bits")
+            by_tb[tb] += event_ms(lambda tb=tb: moments_variant(*ops, k,
+                                                                tb=tb),
+                                  TIMED_REPS)
+        prod_ms += event_ms(lambda: knn_moments(*ops, k), TIMED_REPS)
+        max_ratio = max(max_ratio, b_ratio)
+        lt, le = full[..., 36], full[..., 37]
+        members = int(torch.where(lt < k, le, lt).sum())
+        pairs = c * int(ops[4].sum())
+        nb = nbytes(*ops, full)
+        b_ms, b_by = bound(pairs, PAIR_FLOPS, MEMBER_FLOPS * members, nb)
+        per_bucket.append(dict(
+            bucket=b, cells=t, capacity=c, M=m, pairs=pairs,
+            members=members, bytes=nb, bound_ms=b_ms, bound_by=b_by,
+            ratio=b_ratio, rows_checked=rows,
+            library_ms=kthvalue_yardstick(ops, k, full),
+            ms=event_ms(lambda: moments_variant(*ops, k), TIMED_REPS),
+            plain_ms=event_ms(lambda: moments_variant_plain(*ops, k), 1)))
+        del ops, cut, prod, full
+    log_buckets(label, "moments_split full", per_bucket)
+    for mode, ms in by_mode.items():
+        log(f"[{label}] moments_split {mode} tb=1: {ms:.3f} ms over the 3 "
+            f"buckets (production knn_moments {prod_ms:.3f} ms)")
+    for tb, ms in by_tb.items():
+        log(f"[{label}] moments_split full tb={tb}: {ms:.3f} ms")
+    split = kernel_row(
+        "moments_split", "pct_tpu_torch/csrc/moments_split.cu",
+        "scripts/micro_moments_split.py:55", launches["moments_split"],
+        max_err, per_bucket,
+        sum(r["pairs"] * PAIR_FLOPS + r["members"] * MEMBER_FLOPS
+            for r in per_bucket))
+    split.update(
+        script="scripts/torch_micro_moments_split.py", max_err_ratio=max_ratio,
+        ms_by_mode=by_mode, ms_full_by_tb=by_tb, production_ms=prod_ms,
+        rows_checked=[r["rows_checked"] for r in per_bucket],
+        library_call="torch.kthvalue of the prebuilt masked d2 (partial: "
+                     "tau only)")
+
+    # --- 11b. the tensor-core coords select at the script's shape ---
+    T, C, M, k = SCRIPT_SHAPE
+    ops = make_inputs(T, C, M, seed=0, device="cuda")
+    got = select_coords_mxu(*ops, k)
+    torch.cuda.synchronize()
+    want = select_coords_mxu_plain(*ops, k)
+    for name, a, w in zip(("dists", "nbrs", "rows"), got, want):
+        check(same_bits(a, w), f"select_coords_mxu {name} bit-identical to "
+              "its plain version (missing slots: slot 0)")
+    d_p, n_p = knn_select_coords(*ops, k)
+    found = d_p < 1e18
+    check(same_bits(got[0], d_p) and bool(
+        (got[1].view(torch.int32) == n_p.view(torch.int32)).all(-1)[found]
+        .all()), "select_coords_mxu: knn_select_coords' distances, and its "
+        "coordinates on found slots")
+    mxu_err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want))
+    pairs = C * int(ops[4].sum())
+    nb = nbytes(*ops, *got)
+    b_ms, b_by = bound(pairs, PAIR_FLOPS, 8 * k * C * M * T, nb)
+    lib_ms = topk_yardstick(
+        ops, k, got[0], got[1], lambda pos: torch.gather(
+            ops[1], 1, pos.reshape(T, C * k, 1).expand(-1, -1, 3))
+        .reshape(T, C, k, 3))
+    mxu = dict(bucket=0, cells=T, capacity=C, M=M, pairs=pairs, bytes=nb,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               ms=event_ms(lambda: select_coords_mxu(*ops, k), TIMED_REPS),
+               plain_ms=event_ms(lambda: select_coords_mxu_plain(*ops, k), 1))
+    base_ms = event_ms(lambda: knn_select_coords(*ops, k), TIMED_REPS)
+    log(f"[{label}] select_coords_mxu at (T, C, M, k) = {SCRIPT_SHAPE}: "
+        f"{int(found.sum())} of {found.numel()} slots found; kernel "
+        f"{mxu['ms']:.3f} ms ({T * C / mxu['ms'] / 1e3:.2f} Mq/s) against "
+        f"knn_select_coords {base_ms:.3f} ms ({T * C / base_ms / 1e3:.2f} "
+        f"Mq/s), plain {mxu['plain_ms']:.3f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), library yardstick (partial) {fmt_ms(lib_ms)}")
+    mxu_row = kernel_row(
+        "select_coords_mxu", "pct_tpu_torch/csrc/select_mxu.cu",
+        "scripts/micro_select_mxu.py:30", launches["select_coords_mxu"],
+        mxu_err, [mxu], pairs * PAIR_FLOPS + 8 * k * C * M * T)
+    mxu_row.update(
+        script="scripts/torch_micro_select_mxu.py", production_ms=base_ms,
+        library_call="torch.topk over int64 (d2 bits << 32 | m) keys of the "
+                     "prebuilt masked d2 (partial: no d2, no extraction)")
+    del ops, got, want, d_p, n_p
+
+    # --- 11c. the moments-shaped toy kernel at the script's shapes ---
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 off for bmm")
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy(rng.standard_normal(
+        (8, n, 256)).astype(np.float32)).cuda() for n in (266, 1024))
+    got = moments_like(x, y)
+    torch.cuda.synchronize()
+    want = moments_like_plain(x, y)
+    check(same_bits(got, want),
+          "moments_like bit-identical to its plain version")
+    like_err = float((got - want).abs().max())
+    T, C, M = x.shape[0], x.shape[1], y.shape[1]
+    nb = nbytes(x, y, got)
+    b_ms, b_by = bound(0, 0, 2 * T * C * M * 256, nb)
+    like = dict(bucket=0, cells=T, capacity=C, M=M, pairs=0, bytes=nb,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=event_ms(lambda: torch.bmm(x, y.transpose(1, 2)),
+                                    TIMED_REPS),
+                ms=event_ms(lambda: moments_like(x, y), TIMED_REPS),
+                plain_ms=event_ms(lambda: moments_like_plain(x, y), 3))
+    log(f"[{label}] moments_like at (T, C, M) = ({T}, {C}, {M}): kernel "
+        f"{like['ms']:.3f} ms, plain {like['plain_ms']:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), torch.bmm of the product alone "
+        f"{like['library_ms']:.3f} ms")
+    like_row = kernel_row(
+        "moments_like", "pct_tpu_torch/csrc/moments_like.cu",
+        "scripts/repro_mosaic_cold.py:67", launches["moments_like"], like_err,
+        [like], 2 * T * C * M * 256)
+    like_row.update(
+        script="scripts/torch_repro_cold_build.py",
+        library_call="torch.bmm of x and y^T, TF32 off (partial: the "
+                     "product only)")
+    log(f"[{label}] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return [split, mxu_row, like_row]
+
+
 def mesh_record(rec, flops=None):
     """A kernel's record at one of phase 7's shapes, per call of the
     driven entry point, with its buckets."""
@@ -1733,6 +1937,11 @@ def main():
         fused_curvature,
     )
     from pct_tpu_torch.pipeline.fused import SPLIT_TO, plan_engine
+    from pct_tpu_torch.micro import (
+        moments_like,
+        moments_variant,
+        select_coords_mxu,
+    )
     from pct_tpu_torch.shapes import generate_shape
 
     # --- 2. build every kernel from the checkout ---
@@ -1742,7 +1951,8 @@ def main():
     for name, lib in libs.items():
         logf = lib.with_suffix(".log")
         for line in (logf.read_text().splitlines() if logf.exists() else []):
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or \
+                    line.startswith("nvcc "):
                 log(f"  {name}: {line.strip()}")
 
     dev = torch.device("cuda")
@@ -1751,7 +1961,10 @@ def main():
     n = cloud.num_points
     counters = {"select_coords": knn_select_coords, "moments": knn_moments,
                 "select_rows": knn_select_rows, "select_pos": knn_select,
-                "band_select": knn_band_select}
+                "band_select": knn_band_select,
+                "moments_split": moments_variant,
+                "select_coords_mxu": select_coords_mxu,
+                "moments_like": moments_like}
     none = {name: 0 for name in counters}
 
     # --- 3. list engine, k=20 ---
@@ -1898,6 +2111,9 @@ def main():
     distributed, dist_walls = distributed_phase(
         label, cloud, pts, counters, none, walls20, walls100)
 
+    # --- 11. the TPU scripts' kernels (no entry point launches them) ---
+    micro_rows = micro_phase(label, launches20)
+
     # --- 6. numbers ---
     for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
                         (f"fast_curvature k={K_MOM}", walls100),
@@ -2003,8 +2219,10 @@ def main():
         f"{mesh_path['wall']:.3f} s (one call), stages (s) "
         f"{mesh_path['timings']}")
 
+    rows += micro_rows
     for r in rows:
-        r["validation"] = validation[r["name"]]
+        r["card"] = label
+        r["validation"] = validation.get(r["name"], {})   # phase 9 checks 0
         r["distributed"] = distributed[r["name"]]
         log(f"[{label}] {r['name']} launches in phase 9: {r['validation']}, "
             f"in phase 10: {r['distributed']}")
@@ -2013,7 +2231,7 @@ def main():
             f"{statistics.median(walls[1:]):.4f} s/call (median of "
             f"{len(walls) - 1}; cold first call {walls[0]:.3f} s)")
 
-    # --- 11. result ---
+    # --- 12. result ---
     log(f"[{label}] chip_smoke.py: {time.perf_counter() - t_start:.1f} s "
         "from start to the result")
     log(f"kernels: {[r['name'] for r in rows]}")

@@ -1,5 +1,7 @@
 // Warp-per-query k-nearest machinery shared by select_rows.cu,
-// select_coords.cu, band_select.cu and moments.cu, for sm_90a (H100).
+// select_coords.cu, band_select.cu, moments.cu (with moments_warp.cuh)
+// and the script kernels moments_split.cu and select_mxu.cu, for sm_90a
+// (H100).
 //
 // Layout. One thread block per cell row t, W = min(MAX_WARPS, C) warps;
 // warp w serves the row's query slots c = w, w + W, ... in turn. Where

@@ -32,8 +32,9 @@
 // id, valid) and queries (16 B a slot) and writing 192 B per query slot,
 // against 3.35 TB/s. On the 1M-point k=100 main path the bytes dominate.
 //
-// The design (knn_warp.cuh): one block per cell row stages the row once
-// (the Pallas kernel keeps all (C, M) d2 bits in VMEM; here each warp
+// The design (knn_warp.cuh; the per-query stages in moments_warp.cuh,
+// shared with moments_split.cu): one block per cell row stages the row
+// once (the Pallas kernel keeps all (C, M) d2 bits in VMEM; here each warp
 // keeps its query's M bits in shared memory); one warp per query slot
 // computes each d2 once, in a pass that also takes the minimum and its
 // first slot, the largest valid bits and how many slots hold them, and
@@ -44,58 +45,11 @@
 // members 32 at a time, so that each lane builds whole monomial chains.
 // The 48 outputs are written by consecutive lanes.
 
-#include "knn_warp.cuh"
+#include "moments_warp.cuh"
 
 namespace {
 
-using namespace knn_warp;
-
-constexpr int NOUT = 48;
-constexpr int NMOM = 35;
-
-// moments: usable when valid > 0 and not the query itself
-struct MomentRule {
-  __device__ static unsigned bits(int valid, int cand, int qr, unsigned b) {
-    return (valid > 0 && cand != qr) ? b : sent_bits();
-  }
-};
-
-// Per-warp scratch: the radix histogram (256 words), then reused as the
-// member queue (64 slots) and the output row (48 floats).
-struct Scratch {
-  int queue[64];
-  float row[NOUT];
-};
-static_assert(sizeof(Scratch) <= SCRATCH, "scratch overflow");
-
-template <class Row>
-__device__ __forceinline__ void add_member(const Row& row, int m, unsigned v,
-                                           unsigned tau, float w_tie,
-                                           float qx, float qy, float qz,
-                                           float inv, float* acc) {
-  const float w = v < tau ? 1.f : w_tie;
-  const float xh = fminf(fmaxf(__fmul_rn(__fsub_rn(row.x(m), qx), inv), -2.f), 2.f);
-  const float yh = fminf(fmaxf(__fmul_rn(__fsub_rn(row.y(m), qy), inv), -2.f), 2.f);
-  const float zh = fminf(fmaxf(__fmul_rn(__fsub_rn(row.z(m), qz), inv), -2.f), 2.f);
-  float mo[NMOM];
-  mo[0] = w;
-#define MONO(j, parent, h) mo[j] = __fmul_rn(mo[parent], h)
-  MONO(1, 0, xh);   MONO(2, 0, yh);   MONO(3, 0, zh);   // degree 1
-  MONO(4, 1, xh);   MONO(5, 2, xh);   MONO(6, 3, xh);   // degree 2
-  MONO(7, 2, yh);   MONO(8, 3, yh);   MONO(9, 3, zh);
-  MONO(10, 4, xh);  MONO(11, 5, xh);  MONO(12, 6, xh);  // degree 3
-  MONO(13, 7, xh);  MONO(14, 8, xh);  MONO(15, 9, xh);
-  MONO(16, 7, yh);  MONO(17, 8, yh);  MONO(18, 9, yh);
-  MONO(19, 9, zh);
-  MONO(20, 10, xh); MONO(21, 11, xh); MONO(22, 12, xh); // degree 4
-  MONO(23, 13, xh); MONO(24, 14, xh); MONO(25, 15, xh);
-  MONO(26, 16, xh); MONO(27, 17, xh); MONO(28, 18, xh);
-  MONO(29, 19, xh); MONO(30, 16, yh); MONO(31, 17, yh);
-  MONO(32, 18, yh); MONO(33, 19, yh); MONO(34, 19, zh);
-#undef MONO
-#pragma unroll
-  for (int j = 0; j < NMOM; ++j) acc[j] = __fadd_rn(acc[j], mo[j]);
-}
+using namespace moments_warp;
 
 // One query slot: its 48 stats, written to o[0, 48). `first` computes
 // each slot's bits for the first pass, which stores them to `bits` when
@@ -105,124 +59,27 @@ __device__ void moments_query(const First& first, unsigned* bits,
                               const Src& src, const Row& row, int M, int k,
                               float qx, float qy, float qz,
                               unsigned char* scratch, int lane, float* o) {
-  const int groups = (M + 31) >> 5;
-  const unsigned sent = sent_bits();
   // ---- 1. min bits and its first slot, max valid bits and how many
   //         slots hold it, valid count ----
-  unsigned mn = ~0u, mx = 0;
-  int am_n = M, nv = 0, n_mx = 0;
-  for (int m = lane; m < M; m += 32) {
-    const unsigned v = first(m);
-    if (bits) bits[m] = v;
-    if (v < mn) {
-      mn = v;
-      am_n = m;
-    }
-    if (v != sent) {
-      ++nv;
-      if (n_mx == 0 || v > mx) {
-        mx = v;
-        n_mx = 1;
-      } else if (v == mx) {
-        ++n_mx;
-      }
-    }
-  }
-  __syncwarp();
-  const unsigned wmn = __reduce_min_sync(FULL, mn);
-  am_n = static_cast<int>(__reduce_min_sync(
-      FULL, mn == wmn ? static_cast<unsigned>(am_n) : static_cast<unsigned>(M)));
-  const unsigned wmx = __reduce_max_sync(FULL, n_mx ? mx : 0u);
-  const int n_at_mx = static_cast<int>(__reduce_add_sync(
-      FULL, (n_mx && mx == wmx) ? static_cast<unsigned>(n_mx) : 0u));
-  nv = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(nv)));
+  const FirstPass f = first_pass(first, bits, M, lane);
 
   // ---- 2. tau and the counts at it ----
   unsigned tau = 0;
   int count_lt = 0, count_le = 0;
-  if (nv >= k) {          // the kth smallest: every unusable slot lies above
+  if (f.nv >= k) {        // the kth smallest: every unusable slot lies above
     int equal;
     tau = radix_kth(src, M, k, reinterpret_cast<unsigned*>(scratch), lane,
                     &count_lt, &equal);
     count_le = count_lt + equal;
-  } else if (nv > 0) {    // the largest valid: every valid slot at or below
-    tau = wmx;
-    count_le = nv;
-    count_lt = nv - n_at_mx;
+  } else if (f.nv > 0) {  // the largest valid: every valid slot at or below
+    tau = f.mx;
+    count_le = f.nv;
+    count_lt = f.nv - f.n_at_mx;
   }
 
-  // ---- 3. weights and the 35 weighted monomial sums ----
-  const float tau_f = __uint_as_float(tau);
-  const float sigma = __fsqrt_rn(fmaxf(tau_f, 0.f));
-  const float inv = __fdiv_rn(1.f, fmaxf(sigma, 1e-30f));
-  const int count_eq = max(count_le - count_lt, 1);
-  const float w_tie = fminf(fmaxf(__fdiv_rn(static_cast<float>(k - count_lt),
-                                            static_cast<float>(count_eq)),
-                                  0.f), 1.f);
-  float acc[NMOM];
-#pragma unroll
-  for (int j = 0; j < NMOM; ++j) acc[j] = 0.f;
-  Scratch& s = *reinterpret_cast<Scratch*>(scratch);
-  __syncwarp();   // the histogram is read
-  // members (w > 0: below tau, or at tau with a positive tie weight) in
-  // slot order through a 64-slot queue; each full 32 go one to a lane
-  const unsigned lt_mask = (1u << lane) - 1u;   // lanes below this one
-  int queued = 0, am_k = M;   // and the first slot at tau
-  for (int g = 0; g < groups; ++g) {
-    const int m = (g << 5) + lane;
-    const unsigned v = m < M ? src(m) : ~0u;
-    const bool mem = v < tau || (v == tau && w_tie > 0.f);
-    const unsigned ek = __ballot_sync(FULL, v == tau);
-    if (am_k == M && ek) am_k = (g << 5) + __ffs(ek) - 1;
-    const unsigned mb = __ballot_sync(FULL, mem);
-    if (mem) s.queue[queued + __popc(mb & lt_mask)] = m;
-    queued += __popc(mb);
-    if (queued >= 32) {
-      __syncwarp();
-      const int mm = s.queue[lane];
-      add_member(row, mm, src(mm), tau, w_tie, qx, qy, qz, inv, acc);
-      __syncwarp();
-      if (lane < queued - 32) s.queue[lane] = s.queue[32 + lane];
-      __syncwarp();
-      queued -= 32;
-    }
-  }
-  __syncwarp();
-  if (lane < queued) {
-    const int mm = s.queue[lane];
-    add_member(row, mm, src(mm), tau, w_tie, qx, qy, qz, inv, acc);
-  }
-#pragma unroll
-  for (int j = 0; j < NMOM; ++j) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[j] = __fadd_rn(acc[j], __shfl_xor_sync(FULL, acc[j], off));
-  }
-
-  // ---- 4. the output row, staged and written by consecutive lanes ----
-  if (lane == 0) {
-    const bool found = count_le >= k;
-#pragma unroll
-    for (int j = 0; j < NMOM; ++j) s.row[j] = acc[j];
-    s.row[35] = tau_f;
-    s.row[36] = static_cast<float>(count_lt);
-    s.row[37] = static_cast<float>(count_le);
-    s.row[38] = sigma;
-    s.row[39] = __fsub_rn(row.x(am_n), qx);   // am_n < M: M >= 1
-    s.row[40] = __fsub_rn(row.y(am_n), qy);
-    s.row[41] = __fsub_rn(row.z(am_n), qz);
-    const int pk = found ? am_k : 0;
-    s.row[42] = found ? __fsub_rn(row.x(pk), qx) : 0.f;
-    s.row[43] = found ? __fsub_rn(row.y(pk), qy) : 0.f;
-    s.row[44] = found ? __fsub_rn(row.z(pk), qz) : 0.f;
-    s.row[45] = found ? 1.f : 0.f;
-    s.row[46] = 0.f;
-    s.row[47] = 0.f;
-  }
-  __syncwarp();
-  o[lane] = s.row[lane];
-  if (lane < NOUT - 32) o[32 + lane] = s.row[32 + lane];
-  __syncwarp();
+  // ---- 3. weights, the 35 weighted monomial sums, the output row ----
+  finish_query<true, true>(src, row, M, k, tau, count_lt, count_le, f.am_n,
+                           qx, qy, qz, scratch, lane, o);
 }
 
 // Three blocks an SM: caps the registers at 85 a thread (80 used, no

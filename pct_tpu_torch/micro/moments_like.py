@@ -1,0 +1,115 @@
+"""A moments-shaped toy kernel: per-chunk products and their row stats.
+
+Counterpart of ``moments_like`` in the JAX package's TPU script
+``scripts/repro_mosaic_cold.py`` (its kernel ``_kernel``), which times a
+kernel's cold first use; here that is nvcc plus the module load
+(``scripts/torch_repro_cold_build.py``). For x (T, C, 256) and y (T, M,
+256), M a multiple of 256, and each chunk j of 256 rows of y:
+
+    d = x[t] @ y[t, 256 j : 256 j + 256]ᵀ                   (C × 256)
+    out[t] += [Σ d, max d, Σ d², max |d|]  (each over the 256 columns,
+                                            broadcast over 32 lanes)
+
+from out = 0, chunk by chunk, so the "max" columns hold the sum of the
+chunks' maxima. Returns (T, C, 128) float32.
+
+On CUDA tensors ``csrc/moments_like.cu`` runs (a shared-memory-tiled
+FP32 SIMT product written by hand, built with nvcc at first use); on CPU
+tensors the plain PyTorch version below. Both accumulate each dot in k
+order with every product and sum rounded on its own (no FMA, no TF32),
+and both sum the 256 columns by the same halving tree (column i plus
+column i + h for h = 128, 64, ..., 1), so the two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from pct_tpu_torch.ops import build
+
+CHUNK = 256      # columns of a chunk's product, and the contraction depth
+NOUT = 128       # 4 statistics × 32 lanes
+MAX_TILES = 65535   # the kernel's grid takes one tile a block row
+
+
+def _halving_sum(a: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis (a power of two) by the halving tree."""
+    while a.shape[-1] > 1:
+        h = a.shape[-1] // 2
+        a = a[..., :h] + a[..., h:]
+    return a[..., 0]
+
+
+def moments_like_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (T,C,256), (T,M,256) ->
+    (T,C,128)."""
+    T, C, K = x.shape
+    out = x.new_zeros((T, C, NOUT))
+    for j in range(y.shape[1] // CHUNK):
+        yj = y[:, j * CHUNK:(j + 1) * CHUNK]
+        d = x.new_zeros((T, C, CHUNK))
+        for kk in range(K):       # each dot in k order, no FMA
+            d += x[:, :, kk, None] * yj[:, None, :, kk]
+        stats = (_halving_sum(d), d.amax(-1), _halving_sum(d * d),
+                 d.abs().amax(-1))
+        out = out + torch.cat([s[..., None].expand(T, C, 32) for s in stats],
+                              dim=-1)
+    return out
+
+
+def _check(x, y):
+    if x.dim() != 3 or y.dim() != 3 or x.shape[0] != y.shape[0] \
+            or x.shape[2] != CHUNK or y.shape[2] != CHUNK:
+        raise ValueError(f"x (T,C,{CHUNK}) / y (T,M,{CHUNK}) expected, got "
+                         f"{tuple(x.shape)} / {tuple(y.shape)}")
+    if y.shape[1] < CHUNK or y.shape[1] % CHUNK:
+        raise ValueError(f"M={y.shape[1]} must be a positive multiple of "
+                         f"{CHUNK}")
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError("x and y must be float32")
+    if x.device != y.device:
+        raise ValueError(f"operands on {x.device} and {y.device}")
+    if x.shape[0] > MAX_TILES:
+        raise ValueError(f"{x.shape[0]} tiles above {MAX_TILES}")
+
+
+@functools.cache
+def _library():
+    fn = build.load("moments_like").pct_moments_like
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def moments_like(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(T,C,256), (T,M,256) -> (T,C,128) per-chunk row stats (module
+    docstring). CUDA tensors launch the kernel (``moments_like.launches``
+    counts launches); CPU tensors run ``moments_like_plain``."""
+    _check(x, y)
+    T, C, _ = x.shape
+    dev = x.device
+    if dev.type == "cpu":
+        return moments_like_plain(x, y)
+    if dev.type != "cuda":
+        raise ValueError(f"no moments_like kernel for device {dev}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("x and y must be contiguous")
+    out = torch.empty((T, C, NOUT), dtype=torch.float32, device=dev)
+    if T == 0 or C == 0:
+        return out
+    fn = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), T, C,
+                 y.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"moments_like kernel launch failed: CUDA error "
+                           f"{err}")
+    moments_like.launches += 1
+    return out
+
+
+moments_like.launches = 0

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -54,7 +55,8 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     """Compile each named source (default: every ``csrc/*.cu``) that is
     not built yet, one nvcc process per source, all started together.
     Returns {name: library path}; nvcc's output (register and spill
-    counts from ``-Xptxas=-v``) is kept beside each library as ``.log``.
+    counts from ``-Xptxas=-v``) and its wall seconds are kept beside each
+    library as ``.log``.
     """
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -67,19 +69,26 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     procs = {}
     for name, lib in todo.items():
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        log = open(lib.with_suffix(".log"), "w")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp)
+                       tmp, log, time.perf_counter())
     errors = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        todo[name].with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            errors.append(f"{name}.cu: nvcc exited {proc.returncode}\n{log}")
-        else:
-            os.replace(tmp, todo[name])
+    while procs:
+        for name, (proc, tmp, log, t0) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            del procs[name]
+            log.write(f"nvcc {name}.cu: {time.perf_counter() - t0:.2f} s\n")
+            log.close()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                errors.append(f"{name}.cu: nvcc exited {proc.returncode}\n"
+                              f"{todo[name].with_suffix('.log').read_text()}")
+            else:
+                os.replace(tmp, todo[name])
+        time.sleep(0.02)
     if errors:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(errors))
     return libs

@@ -77,47 +77,82 @@ def _first(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.uint8), dim=-1)
 
 
-def _plain_block(qpts, cpts, cand, qrow, valid, k: int) -> torch.Tensor:
-    T, C, _ = qpts.shape
-    M = cpts.shape[1]
+def plain_d2(qpts, cpts, cand, qrow, valid):
+    """The offsets r = p − q (three (T,C,M) tensors), the masked d²
+    (T,C,M: the difference form, MISSING_D2 on unusable slots) and the
+    usable mask."""
     r = [cpts[:, None, :, a] - qpts[:, :, None, a] for a in range(3)]
     d = [-x for x in r]                  # q − p, exactly (negation)
     d2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]            # (T, C, M)
     ok = (valid[:, None, :] > 0) & (cand[:, None, :] != qrow[:, :, None])
-    d2 = torch.where(ok, d2, MISSING_D2)
-    n_valid = ok.sum(-1)
-    top = torch.where(ok, d2, -torch.inf).max(-1).values
-    kth = torch.kthvalue(d2, k, dim=-1).values if M >= k else top
-    tau = torch.where(n_valid >= k, kth,
-                      torch.where(n_valid > 0, top, torch.zeros_like(top)))
+    return r, torch.where(ok, d2, MISSING_D2), ok
+
+
+def plain_stats(r, d2, tau, k: int, am: bool = True,
+                moments: bool = True) -> torch.Tensor:
+    """Everything after τ (T,C) float32: the counts at τ, the first slots
+    of the minimum and of τ, the tie weight and the 35 monomial sums ->
+    (T,C,48). Without ``am`` the nearest and kth offsets are 0; without
+    ``moments`` so are the sums. A found row whose τ no slot holds has a
+    kth offset of 0."""
     tb = tau[..., None]
     lt, le = d2 < tb, d2 <= tb
     count_lt = lt.sum(-1)
     count_le = le.sum(-1)
     found = count_le >= k
     eq = le & ~lt
-    am_n = _first(d2 == d2.min(-1, keepdim=True).values)[..., None]
-    am_k = _first(eq)[..., None]
-    near = [torch.gather(x, -1, am_n)[..., 0] for x in r]
-    kth_off = [torch.where(found, torch.gather(x, -1, am_k)[..., 0], 0.0)
-               for x in r]
+    zero = torch.zeros_like(tau)
+    if am and moments:
+        am_n = _first(d2 == d2.min(-1, keepdim=True).values)[..., None]
+        am_k = _first(eq)[..., None]
+        has_k = found & eq.any(-1)
+        near = [torch.gather(x, -1, am_n)[..., 0] for x in r]
+        kth_off = [torch.where(has_k, torch.gather(x, -1, am_k)[..., 0], 0.0)
+                   for x in r]
+    else:
+        near = kth_off = [zero] * 3
 
     sigma = torch.sqrt(torch.clamp_min(tau, 0.0))
-    inv = torch.div(torch.ones_like(sigma), torch.clamp_min(sigma, 1e-30))
-    count_eq = torch.clamp_min(count_le - count_lt, 1)
-    w_tie = torch.clamp((k - count_lt).to(torch.float32)
-                        / count_eq.to(torch.float32), 0.0, 1.0)
-    w = torch.where(lt, 1.0, torch.where(eq, w_tie[..., None], 0.0))
-    hat = [torch.clamp(x * inv[..., None], -2.0, 2.0) for x in r]
-    monos = [w] + [None] * (len(MOMENT_EXPS) - 1)
-    for i, parent, axis in _CHAIN:
-        monos[i] = monos[parent] * hat[axis]
-    cols = [m.sum(-1) for m in monos]
+    if moments:
+        inv = torch.div(torch.ones_like(sigma), torch.clamp_min(sigma, 1e-30))
+        count_eq = torch.clamp_min(count_le - count_lt, 1)
+        w_tie = torch.clamp((k - count_lt).to(torch.float32)
+                            / count_eq.to(torch.float32), 0.0, 1.0)
+        w = torch.where(lt, 1.0, torch.where(eq, w_tie[..., None], 0.0))
+        hat = [torch.clamp(x * inv[..., None], -2.0, 2.0) for x in r]
+        monos = [w] + [None] * (len(MOMENT_EXPS) - 1)
+        for i, parent, axis in _CHAIN:
+            monos[i] = monos[parent] * hat[axis]
+        cols = [m.sum(-1) for m in monos]
+    else:
+        cols = [zero] * len(MOMENT_EXPS)
     f32 = torch.float32
-    zero = torch.zeros_like(tau)
     cols += [tau, count_lt.to(f32), count_le.to(f32), sigma, *near,
              *kth_off, found.to(f32), zero, zero]
     return torch.stack(cols, dim=-1)
+
+
+def _plain_block(qpts, cpts, cand, qrow, valid, k: int) -> torch.Tensor:
+    M = cpts.shape[1]
+    r, d2, ok = plain_d2(qpts, cpts, cand, qrow, valid)
+    n_valid = ok.sum(-1)
+    top = torch.where(ok, d2, -torch.inf).max(-1).values
+    kth = torch.kthvalue(d2, k, dim=-1).values if M >= k else top
+    tau = torch.where(n_valid >= k, kth,
+                      torch.where(n_valid > 0, top, torch.zeros_like(top)))
+    return plain_stats(r, d2, tau, k)
+
+
+def plain_rows(block, qpts, *ops) -> torch.Tensor:
+    """``block(qpts[s:e], *(a[s:e] for a in ops))`` over chunks of cell
+    rows that bound the (rows, C, M) block, concatenated."""
+    T, C, _ = qpts.shape
+    if T == 0:
+        return qpts.new_empty((0, C, NOUT))
+    pairs = _PLAIN_PAIRS.get(qpts.device.type, 1 << 20)
+    step = max(1, pairs // max(C * ops[0].shape[1], 1))
+    return torch.cat([block(*(a[s:s + step] for a in (qpts, *ops)))
+                      for s in range(0, T, step)])
 
 
 def moments_plain(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
@@ -130,15 +165,8 @@ def moments_plain(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
     qpts (T,C,3), cpts (T,M,3) float32; cand (T,M), qrow (T,C), valid
     (T,M) int32. Returns (T, C, 48) float32.
     """
-    T, C, _ = qpts.shape
-    if T == 0:
-        return qpts.new_empty((0, C, NOUT))
-    pairs = _PLAIN_PAIRS.get(qpts.device.type, 1 << 20)
-    step = max(1, pairs // max(C * cpts.shape[1], 1))
-    return torch.cat([_plain_block(*(a[s:s + step]
-                                     for a in (qpts, cpts, cand, qrow, valid)),
-                                   k)
-                      for s in range(0, T, step)])
+    return plain_rows(lambda *a: _plain_block(*a, k), qpts, cpts, cand, qrow,
+                      valid)
 
 
 def stats_agreement(got: torch.Tensor, want: torch.Tensor):

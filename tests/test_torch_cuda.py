@@ -739,3 +739,132 @@ def test_slab_world_of_one_matches_fused(card_mesh):
     assert float(ex[:n].float().mean()) == 1.0
     assert torch.isclose(curv.K[:n], single.curv.K[:n], rtol=1e-5,
                          atol=1e-7).all()
+
+
+# ---- the TPU scripts' kernels (pct_tpu_torch.micro) ------------------------
+
+def _variant_tile(seed, T=6, C=40, M=300, case="random"):
+    """Moments operands for the stage-split variants: ``lattice`` puts
+    every point on a dyadic lattice (exact ties at the kth distance),
+    duplicates query 0 under another id (d² = 0) and sends the last slot
+    to x = 2⁶³ (d² = 2¹²⁶: the fixed-round searches stop unconverged);
+    ``sparse`` leaves every row under k usable slots; ``empty`` makes
+    every other tile's candidates all invalid."""
+    rng = np.random.default_rng(seed)
+    if case == "lattice":
+        p = (rng.integers(0, 16, (T, M, 3)) * 2.0**-4).astype(np.float32)
+    else:
+        p = rng.standard_normal((T, M, 3)).astype(np.float32)
+    q = p[:, :C].copy()
+    cand = np.tile(np.arange(M, dtype=np.int32), (T, 1))
+    qrow = np.tile(np.arange(C, dtype=np.int32), (T, 1))   # self = slot c
+    valid = (rng.random((T, M)) < (0.05 if case == "sparse" else 0.9)
+             ).astype(np.int32)
+    if case == "lattice":
+        p[:, C + 1] = q[:, 0]
+        p[:, -1, 0] = np.float32(2.0**63)
+        valid[:, -1] = 1
+    if case == "empty":
+        valid[::2] = 0
+    return q, p, cand, qrow, valid
+
+
+VARIANT_MODES = ("full", "fixed26", "quad", "quad_fixed", "oct_fixed",
+                 "interp4", "no_bisect", "no_moments", "no_am", "d2_only")
+
+
+@pytest.mark.parametrize("case", ["random", "lattice", "sparse", "empty"])
+@pytest.mark.parametrize("mode", VARIANT_MODES)
+def test_moments_variant_kernel_matches_plain(cuda, mode, case):
+    """Every stage-split mode against its plain version: columns 35–47
+    bit for bit, the sums within count_le²·2⁻²⁴; ``tb`` = 1 and 4 give
+    the same bits; ``full`` is knn_moments' kernel on columns 35–47."""
+    from pct_tpu_torch.micro.moments_split import (
+        moments_variant,
+        moments_variant_plain,
+    )
+
+    k = 64
+    ops = [torch.from_numpy(a).to(cuda)
+           for a in _variant_tile(len(mode) + 7, case=case)]
+    before = moments_variant.launches
+    got = moments_variant(*ops, k, mode=mode)
+    torch.cuda.synchronize()
+    assert moments_variant.launches == before + 1
+    want = moments_variant_plain(*ops, k, mode=mode)
+    differing, ratio, _ = stats_agreement(got, want)
+    assert differing == 0 and ratio <= 1.0, (differing, ratio)
+    got4 = moments_variant(*ops, k, tb=4, mode=mode)
+    assert torch.equal(got4.view(torch.int32), got.view(torch.int32))
+    if mode == "full":
+        differing, ratio, _ = stats_agreement(got, knn_moments(*ops, k))
+        assert differing == 0 and ratio <= 1.0, (differing, ratio)
+    if case == "lattice" and mode in ("fixed26", "quad_fixed"):
+        full = moments_variant_plain(*ops, k)
+        assert (got[..., 35] > full[..., 35]).any()   # stopped unconverged
+
+
+def _mxu_tile(seed, T=16, C=40, M=300, case="random"):
+    rng = np.random.default_rng(seed)
+    if case == "lattice":
+        p = ((rng.integers(-3, 4, (T, M, 3))) * 2.0**-3).astype(np.float32)
+    else:
+        p = rng.standard_normal((T, M, 3)).astype(np.float32)
+    q = p[:, :C].copy()
+    lo = (1 << 24) + 1 if case == "big_ids" else 0
+    cand = np.stack([lo + rng.permutation(1 << 16)[:M] for _ in range(T)]
+                    ).astype(np.int32)
+    qrow = cand[:, :C].copy()
+    valid = (rng.random((T, M)) < (0.03 if case == "sparse" else 0.9)
+             ).astype(np.int32)
+    return q, p, cand, qrow, valid
+
+
+@pytest.mark.parametrize("case", ["random", "lattice", "sparse", "big_ids"])
+@pytest.mark.parametrize("k", [1, 20, 100])
+def test_select_coords_mxu_kernel_bit_identical(cuda, case, k):
+    """The tensor-core extraction against the plain version, bit for bit
+    on every slot (missing ones: slot 0's coordinates and id), and
+    against the production coords select on distances and coordinates."""
+    from pct_tpu_torch.micro.select_mxu import (
+        select_coords_mxu,
+        select_coords_mxu_plain,
+    )
+
+    ops = [torch.from_numpy(a).to(cuda)
+           for a in _mxu_tile(k + len(case), case=case)]
+    before = select_coords_mxu.launches
+    got = select_coords_mxu(*ops, k, block_cells=4)
+    torch.cuda.synchronize()
+    assert select_coords_mxu.launches == before + 1
+    want = select_coords_mxu_plain(*ops, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    d_c, n_c = knn_select_coords(*ops, k)
+    assert torch.equal(got[0].view(torch.int32), d_c.view(torch.int32))
+    assert torch.equal(got[1], n_c)
+    if case == "sparse" and k > 1:   # ~9 usable slots a row
+        assert (got[0] > 1e18).any()
+    if case == "big_ids":   # ids in (2^24, 2^24 + 2^16]: float32 keeps evens
+        assert (ops[2] % 2 == 1).any() and (got[2] % 2 == 0).all()
+
+
+@pytest.mark.parametrize("T,C,M", [(8, 266, 1024), (3, 37, 512),
+                                   (2, 1, 256)])
+def test_moments_like_kernel_bit_identical(cuda, T, C, M):
+    from pct_tpu_torch.micro.moments_like import (
+        moments_like,
+        moments_like_plain,
+    )
+
+    rng = np.random.default_rng(T * C + M)
+    x = torch.from_numpy(rng.standard_normal((T, C, 256)).astype(
+        np.float32)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal((T, M, 256)).astype(
+        np.float32)).to(cuda)
+    before = moments_like.launches
+    got = moments_like(x, y)
+    torch.cuda.synchronize()
+    assert moments_like.launches == before + 1
+    want = moments_like_plain(x, y)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

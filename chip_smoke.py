@@ -138,11 +138,17 @@ without printing its result line:
     b. ``select_coords_mxu`` at (8192, 128, 504), k=20: every output
        bit-identical to the plain version (missing slots: slot 0), the
        distances and found coordinates to ``knn_select_coords``; its
-       time beside that select's, the bound, the plain version and the
-       partial ``torch.topk`` yardstick;
+       time beside that select's, the bound (the extraction's product
+       at the bf16 tensor-core peak), the plain version and the partial
+       ``torch.topk`` yardstick; its first design's time in the log;
     c. ``moments_like`` at (8, 266, 1024): bit-identical to the plain
-       version; its time beside ``torch.bmm`` of the product alone (TF32
-       off);
+       version; one call's time (``ms``, as every kernel's) and its
+       device time (``device_ms``: 20 calls queued behind a device
+       sleep, so the wrapper's host time is not in it), each beside
+       ``torch.bmm`` of the product alone (TF32 off) timed the same way
+       (``library_ms``, ``library_device_ms``), the bound; its first
+       design's time and the no-FMA ceiling (twice the bound, an FMUL
+       and an FADD a multiply-add) in the log;
 12. the kernel table (one JSON line, eight kernels, each with the card's
    name and power limit; each package kernel's ``mesh_path`` lists its
    records at phase 7's and phase 8's shapes, ``validation`` its
@@ -165,6 +171,7 @@ PAD_MULTIPLE = 1 << 16
 K_LIST = 20                      # list engine (select kernel)
 K_MOM = 100                      # moments engine (moments kernel)
 FP32_PEAK = 67e12                # H100 SXM FP32 (non-tensor) FLOP/s
+BF16_TC_PEAK = 989e12            # H100 SXM bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PAIR_FLOPS = 9                   # 3 sub, 3 mul, 2 add, 1 compare per pair
 MEMBER_FLOPS = 70                # 35 mul + 35 add per weighted member
@@ -198,6 +205,10 @@ BAND_CHUNK_BLOCKS = 512          # row blocks a plain-version call
 # fitted band 1024 and the default band 384 (PERF.md, NVIDIA H100 80GB
 # HBM3, 700 W)
 BAND_FIRST_DESIGN_MS = {1024: 37.771, 384: 19.381}
+# the script kernels' first designs at their scripts' shapes, ms (PERF.md,
+# NVIDIA H100 80GB HBM3, 700 W): the FP64 one-query-a-warp extraction and
+# the 16-row SIMT tiles
+EARLIER_MS = {"select_coords_mxu": 38.04, "moments_like": 0.209}
 K_NORMALS = 50                   # estimate_and_orient_normals' default k
 MESH_SIDE = 1000                 # (u, v) lattice of the structured torus mesh
 VOXEL = 0.02                     # voxel edge of the downsample check
@@ -244,10 +255,37 @@ def event_ms(fn, reps):
     return statistics.median(times)
 
 
-def bound(pairs, flops_per_pair, extra_flops, nbytes):
-    """(bound ms, what bounds it): the larger of the operations over the
-    FP32 peak and the bytes over the memory rate."""
-    t_ops = (pairs * flops_per_pair + extra_flops) / FP32_PEAK * 1e3
+def device_ms(fn, reps, calls=20, sleep_cycles=10_000_000):
+    """Median device time of one ``fn()`` with the host's enqueue kept
+    out: ``reps`` runs of ``calls`` back-to-back calls between CUDA
+    events, each run queued behind a device sleep (~5 ms) that holds the
+    card until every call is enqueued. For kernels of tens of µs, whose
+    wrapper's host time ``event_ms`` would count."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(sleep_cycles)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def bound(pairs, flops_per_pair, extra_flops, nbytes, tc_flops=0):
+    """(bound ms, what bounds it): the largest of the FP32 operations over
+    the FP32 peak, the bf16 tensor-core operations ``tc_flops`` over
+    theirs (the two units run side by side) and the bytes over the
+    memory rate."""
+    t_ops = max((pairs * flops_per_pair + extra_flops) / FP32_PEAK,
+                tc_flops / BF16_TC_PEAK) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -689,12 +727,13 @@ def library_total(per_bucket):
     return None if None in libs else sum(libs)
 
 
-def call_numbers(per_bucket, flops=None):
+def call_numbers(per_bucket, flops=None, tc_flops=0):
     """Per call of the entry point: the buckets' ms, plain ms and
-    library ms summed, and the bound of the work they do together."""
+    library ms summed, and the bound of the work they do together
+    (``tc_flops`` on the bf16 tensor cores, beside the FP32 ``flops``)."""
     if flops is None:
         flops = sum(r["pairs"] for r in per_bucket) * PAIR_FLOPS
-    t_ops = flops / FP32_PEAK
+    t_ops = max(flops / FP32_PEAK, tc_flops / BF16_TC_PEAK)
     t_bytes = sum(r["bytes"] for r in per_bucket) / HBM_BYTES_PER_S
     return {
         "ms": sum(r["ms"] for r in per_bucket),
@@ -706,7 +745,7 @@ def call_numbers(per_bucket, flops=None):
 
 
 def kernel_row(name, source, replaces, launches, max_err, per_bucket,
-               flops=None):
+               flops=None, tc_flops=0):
     return {
         "name": name,
         "route": "cuda",
@@ -714,7 +753,7 @@ def kernel_row(name, source, replaces, launches, max_err, per_bucket,
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max_err,
-        **call_numbers(per_bucket, flops),
+        **call_numbers(per_bucket, flops, tc_flops),
     }
 
 
@@ -1801,7 +1840,9 @@ def micro_phase(label, launches):
         library_call="torch.kthvalue of the prebuilt masked d2 (partial: "
                      "tau only)")
 
+    t_11a = time.perf_counter() - t_phase
     # --- 11b. the tensor-core coords select at the script's shape ---
+    t_11b = time.perf_counter()
     T, C, M, k = SCRIPT_SHAPE
     ops = make_inputs(T, C, M, seed=0, device="cuda")
     got = select_coords_mxu(*ops, k)
@@ -1820,7 +1861,10 @@ def micro_phase(label, launches):
                   for a, w in zip(got, want))
     pairs = C * int(ops[4].sum())
     nb = nbytes(*ops, *got)
-    b_ms, b_by = bound(pairs, PAIR_FLOPS, 8 * k * C * M * T, nb)
+    # the extraction: a one-hot row times P (M x 4) a round, on the bf16
+    # tensor cores (the three-piece cut is the design's, not the work's)
+    ext_flops = 8 * k * C * M * T
+    b_ms, b_by = bound(pairs, PAIR_FLOPS, 0, nb, ext_flops)
     lib_ms = topk_yardstick(
         ops, k, got[0], got[1], lambda pos: torch.gather(
             ops[1], 1, pos.reshape(T, C * k, 1).expand(-1, -1, 3))
@@ -1830,16 +1874,18 @@ def micro_phase(label, launches):
                ms=event_ms(lambda: select_coords_mxu(*ops, k), TIMED_REPS),
                plain_ms=event_ms(lambda: select_coords_mxu_plain(*ops, k), 1))
     base_ms = event_ms(lambda: knn_select_coords(*ops, k), TIMED_REPS)
+    t_11b = time.perf_counter() - t_11b
     log(f"[{label}] select_coords_mxu at (T, C, M, k) = {SCRIPT_SHAPE}: "
         f"{int(found.sum())} of {found.numel()} slots found; kernel "
-        f"{mxu['ms']:.3f} ms ({T * C / mxu['ms'] / 1e3:.2f} Mq/s) against "
+        f"{mxu['ms']:.3f} ms ({T * C / mxu['ms'] / 1e3:.2f} Mq/s; earlier "
+        f"design {EARLIER_MS['select_coords_mxu']} ms) against "
         f"knn_select_coords {base_ms:.3f} ms ({T * C / base_ms / 1e3:.2f} "
         f"Mq/s), plain {mxu['plain_ms']:.3f} ms, bound {b_ms:.4f} ms "
         f"({b_by}), library yardstick (partial) {fmt_ms(lib_ms)}")
     mxu_row = kernel_row(
         "select_coords_mxu", "pct_tpu_torch/csrc/select_mxu.cu",
         "scripts/micro_select_mxu.py:30", launches["select_coords_mxu"],
-        mxu_err, [mxu], pairs * PAIR_FLOPS + 8 * k * C * M * T)
+        mxu_err, [mxu], pairs * PAIR_FLOPS, ext_flops)
     mxu_row.update(
         script="scripts/torch_micro_select_mxu.py", production_ms=base_ms,
         library_call="torch.topk over int64 (d2 bits << 32 | m) keys of the "
@@ -1847,6 +1893,7 @@ def micro_phase(label, launches):
     del ops, got, want, d_p, n_p
 
     # --- 11c. the moments-shaped toy kernel at the script's shapes ---
+    t_11c = time.perf_counter()
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 off for bmm")
     rng = np.random.default_rng(0)
     x, y = (torch.from_numpy(rng.standard_normal(
@@ -1860,25 +1907,40 @@ def micro_phase(label, launches):
     T, C, M = x.shape[0], x.shape[1], y.shape[1]
     nb = nbytes(x, y, got)
     b_ms, b_by = bound(0, 0, 2 * T * C * M * 256, nb)
+
+    def bmm():
+        return torch.bmm(x, y.transpose(1, 2))
+
+    # one call as every kernel is timed (the host's enqueue in it), and
+    # the device time alone: the wrapper's Python takes longer than the
+    # kernel
     like = dict(bucket=0, cells=T, capacity=C, M=M, pairs=0, bytes=nb,
                 bound_ms=b_ms, bound_by=b_by,
-                library_ms=event_ms(lambda: torch.bmm(x, y.transpose(1, 2)),
-                                    TIMED_REPS),
+                library_ms=event_ms(bmm, TIMED_REPS),
                 ms=event_ms(lambda: moments_like(x, y), TIMED_REPS),
                 plain_ms=event_ms(lambda: moments_like_plain(x, y), 3))
+    dev = dict(device_ms=device_ms(lambda: moments_like(x, y), TIMED_REPS),
+               library_device_ms=device_ms(bmm, TIMED_REPS))
+    # the bit rule's FMUL + FADD a multiply-add: twice the flop bound
+    ceiling_ms = 2 * 2 * T * C * M * 256 / FP32_PEAK * 1e3
     log(f"[{label}] moments_like at (T, C, M) = ({T}, {C}, {M}): kernel "
-        f"{like['ms']:.3f} ms, plain {like['plain_ms']:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}), torch.bmm of the product alone "
-        f"{like['library_ms']:.3f} ms")
+        f"{like['ms']:.4f} ms a call, {dev['device_ms']:.4f} ms on the "
+        f"device (earlier design {EARLIER_MS['moments_like']} ms a call), "
+        f"plain {like['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"no-FMA ceiling {ceiling_ms:.4f} ms), torch.bmm of the product "
+        f"alone {like['library_ms']:.4f} ms a call, "
+        f"{dev['library_device_ms']:.4f} ms on the device")
     like_row = kernel_row(
         "moments_like", "pct_tpu_torch/csrc/moments_like.cu",
         "scripts/repro_mosaic_cold.py:67", launches["moments_like"], like_err,
         [like], 2 * T * C * M * 256)
     like_row.update(
-        script="scripts/torch_repro_cold_build.py",
+        script="scripts/torch_repro_cold_build.py", **dev,
         library_call="torch.bmm of x and y^T, TF32 off (partial: the "
                      "product only)")
-    log(f"[{label}] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    t_end = time.perf_counter()
+    log(f"[{label}] phase 11 took {t_end - t_phase:.1f} s (11a {t_11a:.1f}, "
+        f"11b {t_11b:.1f}, 11c {t_end - t_11c:.1f})")
     return [split, mxu_row, like_row]
 
 

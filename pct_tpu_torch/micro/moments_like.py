@@ -13,12 +13,15 @@ kernel's cold first use; here that is nvcc plus the module load
 from out = 0, chunk by chunk, so the "max" columns hold the sum of the
 chunks' maxima. Returns (T, C, 128) float32.
 
-On CUDA tensors ``csrc/moments_like.cu`` runs (a shared-memory-tiled
-FP32 SIMT product written by hand, built with nvcc at first use); on CPU
-tensors the plain PyTorch version below. Both accumulate each dot in k
-order with every product and sum rounded on its own (no FMA, no TF32),
-and both sum the 256 columns by the same halving tree (column i plus
-column i + h for h = 128, 64, ..., 1), so the two agree bit for bit.
+On CUDA tensors ``csrc/moments_like.cu`` runs (an FP32 SIMT product
+written by hand, built with nvcc at first use: units of 136 rows × the
+128 columns of one residue mod 2 of a chunk, each finishing its part of
+the column tree, and the last unit of a (tile, row slab) to arrive
+adding the two residues and the chunks); on CPU tensors the plain
+PyTorch version below. Both accumulate each dot in k order with every
+product and sum rounded on its own (no FMA, no TF32), and both sum the
+256 columns by the same halving tree (column i plus column i + h for h =
+128, 64, ..., 1), so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -78,16 +81,36 @@ def _check(x, y):
 
 @functools.cache
 def _library():
-    fn = build.load("moments_like").pct_moments_like
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = build.load("moments_like")
+    lib.pct_moments_like.argtypes = ([ctypes.c_void_p] * 5
+                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.pct_moments_like.restype = ctypes.c_int
+    lib.pct_moments_like_slabs.argtypes = [ctypes.c_int]
+    lib.pct_moments_like_slabs.restype = ctypes.c_int
+    return lib
+
+
+_tickets: dict = {}
+
+
+def _ticket(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The kernel's arrival tickets for one stream of one device: zeroed
+    once, and every launch leaves them zeroed (the last unit of each
+    (tile, row slab) sets its ticket back), so no call pays a fill."""
+    key = (dev.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _tickets[key] = buf
+    return buf
 
 
 def moments_like(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(T,C,256), (T,M,256) -> (T,C,128) per-chunk row stats (module
     docstring). CUDA tensors launch the kernel (``moments_like.launches``
-    counts launches); CPU tensors run ``moments_like_plain``."""
+    counts launches: one a call, the last-arriving units' finishing pass
+    included, as it runs inside that launch); CPU tensors run
+    ``moments_like_plain``."""
     _check(x, y)
     T, C, _ = x.shape
     dev = x.device
@@ -100,11 +123,18 @@ def moments_like(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((T, C, NOUT), dtype=torch.float32, device=dev)
     if T == 0 or C == 0:
         return out
-    fn = _library()
+    # the kernel copies 16-byte pieces; a view may start off that grain
+    x, y = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (x, y))
+    lib = _library()
+    M = y.shape[1]
+    part = torch.empty(T * C * (M // CHUNK) * 2 * 4, dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), T, C,
-                 y.shape[1], stream)
+        ticket = _ticket(dev, stream, T * lib.pct_moments_like_slabs(C))
+        err = lib.pct_moments_like(x.data_ptr(), y.data_ptr(),
+                                   out.data_ptr(), part.data_ptr(),
+                                   ticket.data_ptr(), T, C, M, stream)
     if err != 0:
         raise RuntimeError(f"moments_like kernel launch failed: CUDA error "
                            f"{err}")

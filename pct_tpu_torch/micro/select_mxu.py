@@ -25,11 +25,14 @@ it (``ValueError``: the JAX grid of T // block_cells steps would leave
 the last T % block_cells rows unwritten).
 
 On CUDA tensors ``csrc/select_mxu.cu`` runs: the warp select of
-``knn_warp.cuh``, then the one-hot product on the tensor cores as FP64
-``mma.sync`` (exact: one value times 1.0 plus zeros); on CPU tensors the
-plain PyTorch version below, which gathers the winners (the product's
-value: a −0.0 coordinate reads +0.0, as the product's sum from +0 does).
-The two agree bit for bit.
+``knn_warp.cuh``, then, per cell row, the one-hot product of all its
+queries' rounds on the bf16 tensor cores (``mma.sync`` m16n8k16), each
+float32 of [x, y, z, float(cand)] cut into three bf16 pieces that the
+product returns exactly and that rebuild it bit for bit (values below
+2⁻¹⁰³ scaled by 2⁶⁴ first, with a flag column, so no piece is a bf16
+subnormal); on CPU tensors the plain PyTorch version below, which
+gathers the winners (the product's value: a −0.0 coordinate reads +0.0,
+as the product's sum from +0 does). The two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -98,7 +101,8 @@ def select_coords_mxu(qpts: torch.Tensor, cpts: torch.Tensor,
     """(T,C,3) queries vs (T,M,3) candidates -> (dists (T,C,k), nbrs
     (T,C,k,3), rows (T,C,k) int32) as the module docstring says;
     1 ≤ k ≤ 128. CUDA tensors launch the kernel
-    (``select_coords_mxu.launches`` counts launches); CPU tensors run
+    (``select_coords_mxu.launches`` counts launches: one a call, the
+    selection and the per-row product both inside it); CPU tensors run
     ``select_coords_mxu_plain``."""
     _check(qpts, cpts, cand, qrow, valid, k)
     T, C, _ = qpts.shape

@@ -810,29 +810,50 @@ def _mxu_tile(seed, T=16, C=40, M=300, case="random"):
         p = ((rng.integers(-3, 4, (T, M, 3))) * 2.0**-3).astype(np.float32)
     else:
         p = rng.standard_normal((T, M, 3)).astype(np.float32)
-    q = p[:, :C].copy()
+    if case == "tiny":   # -0.0, values about 2^-110 and subnormals
+        p[:, 0::4, 0] = -0.0
+        p[:, 1::4, 1] *= np.float32(2.0**-110)
+        p[:, 2::4, 2] = (p[:, 2::4, 2] * np.float32(2.0**-130)).astype(
+            np.float32)
+        p[:, 3::4] *= np.float32(2.0**-100)
+    q = p[:, :C].copy() if C <= M else rng.standard_normal(
+        (T, C, 3)).astype(np.float32)
     lo = (1 << 24) + 1 if case == "big_ids" else 0
     cand = np.stack([lo + rng.permutation(1 << 16)[:M] for _ in range(T)]
                     ).astype(np.int32)
-    qrow = cand[:, :C].copy()
+    qrow = np.full((T, C), -1, np.int32)
+    qrow[:, :min(C, M)] = cand[:, :C]
     valid = (rng.random((T, M)) < (0.03 if case == "sparse" else 0.9)
              ).astype(np.int32)
     return q, p, cand, qrow, valid
 
 
-@pytest.mark.parametrize("case", ["random", "lattice", "sparse", "big_ids"])
-@pytest.mark.parametrize("k", [1, 20, 100])
-def test_select_coords_mxu_kernel_bit_identical(cuda, case, k):
+@pytest.mark.parametrize("case,k,T,C,M", [
+    *[(case, k, 16, 40, 300)
+      for case in ("random", "lattice", "sparse", "big_ids", "tiny")
+      for k in (1, 20, 100)],
+    ("random", 20, 8, 128, 504),      # the script's C and M
+    ("random", 5, 16, 40, 17),        # M not a multiple of 16
+    ("tiny", 20, 8, 128, 504),
+    ("random", 128, 4, 1024, 504),    # C k past one group of positions
+    ("lattice", 128, 4, 1024, 300),
+    ("random", 20, 8, 37, 600),       # two chunks of B
+    ("sparse", 20, 8, 40, 1100),
+    ("random", 20, 4, 40, 2000),      # past the cache: the streamed rows
+])
+def test_select_coords_mxu_kernel_bit_identical(cuda, case, k, T, C, M):
     """The tensor-core extraction against the plain version, bit for bit
-    on every slot (missing ones: slot 0's coordinates and id), and
+    on every slot (missing ones: slot 0's coordinates and id; -0.0 reads
+    +0.0, subnormals and values below 2^-103 come back whole), and
     against the production coords select on distances and coordinates."""
     from pct_tpu_torch.micro.select_mxu import (
         select_coords_mxu,
         select_coords_mxu_plain,
     )
 
+    seed = k + len(case) + abs(C + M - 340)
     ops = [torch.from_numpy(a).to(cuda)
-           for a in _mxu_tile(k + len(case), case=case)]
+           for a in _mxu_tile(seed, T, C, M, case=case)]
     before = select_coords_mxu.launches
     got = select_coords_mxu(*ops, k, block_cells=4)
     torch.cuda.synchronize()
@@ -847,10 +868,17 @@ def test_select_coords_mxu_kernel_bit_identical(cuda, case, k):
         assert (got[0] > 1e18).any()
     if case == "big_ids":   # ids in (2^24, 2^24 + 2^16]: float32 keeps evens
         assert (ops[2] % 2 == 1).any() and (got[2] % 2 == 0).all()
+    if case == "tiny":
+        nz = got[1][got[1] != 0].abs()
+        assert (nz < 2.0**-126).any() and (nz < 2.0**-103).any()
+        assert (ops[1].view(torch.int32) == -2**31).any()   # -0.0 given
+        assert not (got[1].view(torch.int32) == -2**31).any()
 
 
 @pytest.mark.parametrize("T,C,M", [(8, 266, 1024), (3, 37, 512),
-                                   (2, 1, 256)])
+                                   (2, 1, 256), (1, 266, 256),
+                                   (4, 37, 2048), (64, 266, 1024),
+                                   (64, 1, 256), (1, 137, 2048)])
 def test_moments_like_kernel_bit_identical(cuda, T, C, M):
     from pct_tpu_torch.micro.moments_like import (
         moments_like,
@@ -866,5 +894,28 @@ def test_moments_like_kernel_bit_identical(cuda, T, C, M):
     got = moments_like(x, y)
     torch.cuda.synchronize()
     assert moments_like.launches == before + 1
+    want = moments_like_plain(x, y)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the arrival tickets are left zeroed: a second call finishes too
+    again = moments_like(x, y)
+    assert torch.equal(again.view(torch.int32), want.view(torch.int32))
+
+
+def test_moments_like_kernel_takes_unaligned_views(cuda):
+    """Views that start off the kernel's 16-byte copy grain are copied
+    first: the result is the plain version's, bit for bit."""
+    from pct_tpu_torch.micro.moments_like import (
+        moments_like,
+        moments_like_plain,
+    )
+
+    nx, ny = 2 * 37 * 256, 2 * 512 * 256
+    rng = np.random.default_rng(5)
+    flat = torch.from_numpy(rng.standard_normal(1 + nx + ny).astype(
+        np.float32)).to(cuda)
+    x = flat[1:1 + nx].view(2, 37, 256)
+    y = flat[1 + nx:].view(2, 512, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = moments_like(x, y)
     want = moments_like_plain(x, y)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -8,7 +8,8 @@ without printing its result line:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel of the port from the checkout's sources (the
-   eight libraries, each nvcc's seconds and register report printed);
+   eight libraries, each nvcc's seconds and its kernels' registers,
+   spills and stack from ``-Xptxas=-v`` printed);
 3. the list engine, k=20, on the 1M-point torus (padded to 1<<16):
    a. the coords select kernel against its plain PyTorch version on
       every occupancy bucket of the main path: bit-identical; beside
@@ -134,7 +135,10 @@ without printing its result line:
        MICRO_CUT_ROWS of the others), ``full`` against ``knn_moments``
        the same way, tb = 4, 8, 16 bit-identical to tb = 1; each mode's
        time, the production kernel's, the bound, the plain version's
-       and ``torch.kthvalue`` (τ only);
+       and ``torch.kthvalue`` (τ only); before them, for each mode and
+       bucket, the kernel's path (bits a lane in registers, or in shared
+       memory), its registers and spills from the build log and its
+       blocks an SM (``variant_info``);
     b. ``select_coords_mxu`` at (8192, 128, 504), k=20: every output
        bit-identical to the plain version (missing slots: slot 0), the
        distances and found coordinates to ``knn_select_coords``; its
@@ -159,6 +163,7 @@ The script imports nothing of JAX or of the JAX package.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -236,6 +241,29 @@ def card_label():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     return out.splitlines()[0]
+
+
+def ptxas_kernels(text):
+    """Each kernel's ``-Xptxas=-v`` report in an nvcc log: a list of
+    {name, registers, stack, spill_stores, spill_loads} (bytes)."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"name": m.group(1)}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+            rows.append(cur)
+            cur = None
+    return rows
 
 
 def event_ms(fn, reps):
@@ -1758,6 +1786,7 @@ def micro_phase(label, launches):
         make_args,
         moments_variant,
         moments_variant_plain,
+        variant_info,
     )
     from pct_tpu_torch.micro.select_mxu import (
         SCRIPT_SHAPE,
@@ -1765,11 +1794,39 @@ def micro_phase(label, launches):
         select_coords_mxu,
         select_coords_mxu_plain,
     )
+    from pct_tpu_torch.ops import build
     from pct_tpu_torch.ops.moments import knn_moments, stats_agreement
     from pct_tpu_torch.ops.select import knn_select_coords
 
     t_phase = time.perf_counter()
     # --- 11a. every moments_variant mode on the script's three buckets ---
+    # the kernel each mode runs at each bucket (its path: bits a lane in
+    # registers, or 0 / -1 past them), its registers and spills from the
+    # build log, and its blocks an SM (CUDA's occupancy calculator)
+    text = build.library_path("moments_split").with_suffix(".log").read_text()
+    built = {}
+    for kern in ptxas_kernels(text):
+        m = re.search(r"variant_kernelILi(\d+)ELi(n?\d+)E", kern["name"])
+        if m:
+            built[(int(m[1]), int(m[2].replace("n", "-")))] = kern
+    check(len(built) == 5 * len(MODES),
+          f"moments_split: {len(built)} kernels in the build log")
+    occupancy = {}
+    for i, mode in enumerate(MODES):
+        occupancy[mode] = []
+        for _, c, m in SCRIPT_BUCKETS:
+            info = variant_info(c, m, mode)
+            kern = built[(i, info["path"])]
+            occupancy[mode].append(dict(
+                path=info["path"], registers=kern["registers"],
+                spill_bytes=kern["spill_stores"] + kern["spill_loads"],
+                stack=kern["stack"], blocks_per_sm=info["blocks_per_sm"],
+                warps_per_sm=info["blocks_per_sm"] * info["warps"]))
+        log(f"[{label}] moments_split {mode} by bucket (path, registers, "
+            f"spill bytes, blocks / warps an SM): " + "; ".join(
+                f"{o['path']}, {o['registers']}, {o['spill_bytes']}, "
+                f"{o['blocks_per_sm']} / {o['warps_per_sm']}"
+                for o in occupancy[mode]))
     k = SCRIPT_K
     per_bucket, max_err, max_ratio = [], 0.0, 0.0
     by_mode = {m: 0.0 for m in MODES}
@@ -2012,10 +2069,18 @@ def main():
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, lib in libs.items():
         logf = lib.with_suffix(".log")
-        for line in (logf.read_text().splitlines() if logf.exists() else []):
-            if "registers" in line or "spill" in line or \
-                    line.startswith("nvcc "):
+        text = logf.read_text() if logf.exists() else ""
+        ks = ptxas_kernels(text)
+        for line in text.splitlines():
+            if line.startswith("nvcc "):
                 log(f"  {name}: {line.strip()}")
+        if ks:
+            log(f"  {name}: {len(ks)} kernels, registers "
+                f"{min(k['registers'] for k in ks)}-"
+                f"{max(k['registers'] for k in ks)}, spill stores / loads "
+                f"up to {max(k['spill_stores'] for k in ks)} / "
+                f"{max(k['spill_loads'] for k in ks)} B, stack up to "
+                f"{max(k['stack'] for k in ks)} B")
 
     dev = torch.device("cuda")
     pts, _ = generate_shape("torus", N_POINTS, radius=1.0)

@@ -34,8 +34,13 @@ whose τ no slot holds has a kth offset of 0.
 
 On CUDA tensors ``csrc/moments_split.cu`` runs (built with nvcc at first
 use); on CPU tensors the plain PyTorch version below. They round every
-operation the same way, so columns 35–47 agree bit for bit and the 35
-sums within count_le²·2⁻²⁴ (``ops.moments.stats_agreement``).
+operation the same way and count every probe to the same integer, so
+columns 35–47 agree bit for bit; the kernel adds the 35 sums in another
+order (lanes' chains, then recursive halving), so they agree within
+count_le²·2⁻²⁴ (``ops.moments.stats_agreement``). ``variant_info`` says
+which of the kernel's paths a shape takes (bits in registers for M ≤ 320,
+else in shared memory or recomputed) and how many of its blocks an SM
+holds.
 """
 
 from __future__ import annotations
@@ -180,11 +185,32 @@ def moments_variant_plain(qpts: torch.Tensor, cpts: torch.Tensor,
 
 @functools.cache
 def _library():
-    fn = build.load("moments_split").pct_moments_variant
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = build.load("moments_split")
+    lib.pct_moments_variant.argtypes = ([ctypes.c_void_p] * 6
+                                        + [ctypes.c_int] * 6
+                                        + [ctypes.c_void_p])
+    lib.pct_moments_variant.restype = ctypes.c_int
+    lib.pct_moments_variant_info.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.pct_moments_variant_info.restype = ctypes.c_int
+    return lib
+
+
+def variant_info(C: int, M: int, mode: str = "full") -> dict:
+    """The kernel a (C, M) shape runs under ``mode`` on the current card,
+    without launching: ``path`` (6, 8 or 10: that many bits a lane in
+    registers; 0: bits in shared memory; -1: d² recomputed from device
+    memory), ``blocks_per_sm`` (the CUDA occupancy calculator's), ``warps``
+    a block and ``smem`` (dynamic shared bytes a block)."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not one of {MODES}")
+    info = (ctypes.c_int * 4)()
+    err = _library().pct_moments_variant_info(C, M, MODES.index(mode), info)
+    if err != 0:
+        raise RuntimeError(f"moments variant occupancy query failed: CUDA "
+                           f"error {err}")
+    return dict(path=info[0], blocks_per_sm=info[1], warps=info[2],
+                smem=info[3])
 
 
 def moments_variant(qpts: torch.Tensor, cpts: torch.Tensor,
@@ -214,7 +240,7 @@ def moments_variant(qpts: torch.Tensor, cpts: torch.Tensor,
     out = torch.empty((T, C, NOUT), dtype=torch.float32, device=dev)
     if T == 0:
         return out
-    fn = _library()
+    fn = _library().pct_moments_variant
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(qpts.data_ptr(), cpts.data_ptr(), cand.data_ptr(),

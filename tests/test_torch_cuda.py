@@ -749,13 +749,25 @@ def _variant_tile(seed, T=6, C=40, M=300, case="random"):
     duplicates query 0 under another id (d² = 0) and sends the last slot
     to x = 2⁶³ (d² = 2¹²⁶: the fixed-round searches stop unconverged);
     ``sparse`` leaves every row under k usable slots; ``empty`` makes
-    every other tile's candidates all invalid."""
+    every other tile's candidates all invalid; ``ties`` puts 80 copies
+    of one point (always valid) behind 30 nearer slots and before the
+    rest, and every query within 0.01 of the origin, so more than 64
+    usable slots share each query's kth d² at k = 64 (the bracket never
+    holds 32 slots or fewer, and the kernel never packs it). Past C = M
+    the queries are drawn apart from the candidates."""
     rng = np.random.default_rng(seed)
     if case == "lattice":
         p = (rng.integers(0, 16, (T, M, 3)) * 2.0**-4).astype(np.float32)
     else:
         p = rng.standard_normal((T, M, 3)).astype(np.float32)
-    q = p[:, :C].copy()
+    q = p[:, :C].copy() if C <= M else rng.standard_normal(
+        (T, C, 3)).astype(np.float32)
+    if case == "ties":
+        u = p / np.linalg.norm(p, axis=-1, keepdims=True)
+        p = (u * rng.uniform(3.0, 4.0, (T, M, 1))).astype(np.float32)
+        p[:, :30] = u[:, :30] * rng.uniform(0.2, 0.5, (T, 30, 1))
+        p[:, 30:110] = (1.0, 0.0, 0.0)
+        q = (rng.standard_normal((T, C, 3)) * 0.005).astype(np.float32)
     cand = np.tile(np.arange(M, dtype=np.int32), (T, 1))
     qrow = np.tile(np.arange(C, dtype=np.int32), (T, 1))   # self = slot c
     valid = (rng.random((T, M)) < (0.05 if case == "sparse" else 0.9)
@@ -766,6 +778,8 @@ def _variant_tile(seed, T=6, C=40, M=300, case="random"):
         valid[:, -1] = 1
     if case == "empty":
         valid[::2] = 0
+    if case == "ties":
+        valid[:, 30:110] = 1
     return q, p, cand, qrow, valid
 
 
@@ -773,24 +787,42 @@ VARIANT_MODES = ("full", "fixed26", "quad", "quad_fixed", "oct_fixed",
                  "interp4", "no_bisect", "no_moments", "no_am", "d2_only")
 
 
-@pytest.mark.parametrize("case", ["random", "lattice", "sparse", "empty"])
+# (case, M, C): M on each side of the kernel's register classes (6, 8, 10
+# bits a lane: M <= 192, 256, 320), in its shared-memory path (321, 1100)
+# and past the shared-memory budget (2000: d² recomputed from device
+# memory); C past M at the wrapper's largest C (512), whose query slots the
+# register paths stage beside the row
+VARIANT_CASES = ([("random", m, 40) for m in (40, 192, 193, 256, 257, 300,
+                                              320, 321, 1100, 2000)]
+                 + [("lattice", m, 40) for m in (300, 1100, 2000)]
+                 + [("sparse", 300, 40), ("sparse", 1100, 40),
+                    ("empty", 300, 40), ("ties", 300, 40), ("ties", 1100, 40),
+                    ("random", 40, 512), ("random", 300, 512)])
+
+
+@pytest.mark.parametrize("case,M,C", VARIANT_CASES)
 @pytest.mark.parametrize("mode", VARIANT_MODES)
-def test_moments_variant_kernel_matches_plain(cuda, mode, case):
+def test_moments_variant_kernel_matches_plain(cuda, mode, case, M, C):
     """Every stage-split mode against its plain version: columns 35–47
     bit for bit, the sums within count_le²·2⁻²⁴; ``tb`` = 1 and 4 give
     the same bits; ``full`` is knn_moments' kernel on columns 35–47."""
     from pct_tpu_torch.micro.moments_split import (
         moments_variant,
         moments_variant_plain,
+        variant_info,
     )
 
     k = 64
     ops = [torch.from_numpy(a).to(cuda)
-           for a in _variant_tile(len(mode) + 7, case=case)]
+           for a in _variant_tile(len(mode) + 7, C=C, M=M, case=case)]
     before = moments_variant.launches
     got = moments_variant(*ops, k, mode=mode)
     torch.cuda.synchronize()
     assert moments_variant.launches == before + 1
+    if C > M:   # the register path; 12 C slots (a shape only the C entry
+        # takes) would not fit its shared memory and go to device memory
+        assert variant_info(C, M, mode)["path"] in (6, 10)
+        assert variant_info(12 * C, M, mode)["path"] == -1
     want = moments_variant_plain(*ops, k, mode=mode)
     differing, ratio, _ = stats_agreement(got, want)
     assert differing == 0 and ratio <= 1.0, (differing, ratio)
@@ -802,6 +834,8 @@ def test_moments_variant_kernel_matches_plain(cuda, mode, case):
     if case == "lattice" and mode in ("fixed26", "quad_fixed"):
         full = moments_variant_plain(*ops, k)
         assert (got[..., 35] > full[..., 35]).any()   # stopped unconverged
+    if case == "ties" and mode == "full":   # > 64 slots at every kth d²
+        assert (want[..., 37] - want[..., 36] > 64).all()
 
 
 def _mxu_tile(seed, T=16, C=40, M=300, case="random"):

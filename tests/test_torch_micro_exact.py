@@ -17,6 +17,13 @@ plain versions' bits).
   tree, then the last s levels in order, ``_residue_sum``) and the whole
   statistic with it (``moments_like_split``), on random and on
   cancelling data.
+- ``moments_split``: the τ search with the bracket packed
+  (``PackedCounter``, ``packed_search``: cnt(lo) carried, the bracket's
+  ≤ 32 slots one to a lane) makes the same probes, counts and τ as
+  ``search_tau`` in every mode; the members' sums in the kernel's order
+  (member i on lane i mod 32, then recursive halving across the lanes,
+  ``halving_moments``) stay within count_le²·2⁻²⁴ of the plain version
+  (that one promises the sums to that tolerance, not to the bit).
 """
 
 import numpy as np
@@ -29,8 +36,17 @@ from pct_tpu_torch.micro.moments_like import (
     _halving_sum,
     moments_like_plain,
 )
+from pct_tpu_torch.micro import moments_split
+from pct_tpu_torch.micro.moments_split import (
+    MODES,
+    SENT_BITS,
+    moments_variant_plain,
+    search_tau,
+)
 from pct_tpu_torch.micro.select_mxu import _emit_mxu, make_inputs
+from pct_tpu_torch.ops.moments import _CHAIN, plain_d2, stats_agreement
 from pct_tpu_torch.ops.select import _plain
+from tests.test_torch_cuda import _variant_tile
 
 TINY = 2.0**-126
 TINY_EXP = 24        # biased float32 exponent of 2⁻¹⁰³ (csrc/select_mxu.cu)
@@ -111,6 +127,183 @@ def moments_like_split(x: torch.Tensor, y: torch.Tensor,
         out = out + torch.cat([v[..., None].expand(T, C, 32) for v in stats],
                               dim=-1)
     return out
+
+
+INT_MAX = 2**31 - 1
+
+
+class PackedCounter:
+    """``csrc/moments_split.cu``'s count of #(bits ≤ t) for rows of bits
+    (R, M) int32: over every slot until ``pack`` finds (lo, hi] holding
+    at most 32 slots, then cnt(lo) at that moment plus #(packed slots ≤
+    t), the packed slots taken in slot order, padded with INT_MAX."""
+
+    def __init__(self, bits: torch.Tensor):
+        self.bits = bits
+        R = bits.shape[0]
+        self.packed = torch.zeros(R, dtype=torch.bool)
+        self.base = torch.zeros(R, dtype=torch.int32)
+        self.lo_pack = torch.zeros(R, dtype=torch.int32)
+        self.mine = torch.full((R, 32), INT_MAX, dtype=torch.int32)
+
+    def count(self, t):
+        full = (self.bits <= t[:, None]).sum(-1, dtype=torch.int32)
+        pk = self.base + (self.mine <= t[:, None]).sum(-1, dtype=torch.int32)
+        return torch.where(self.packed, pk, full)
+
+    def pack(self, lo, hi, cl, ch):
+        go = ~self.packed & (lo <= hi) & (ch - cl <= 32)
+        inside = (self.bits > lo[:, None]) & (self.bits <= hi[:, None])
+        assert torch.equal(inside.sum(-1, dtype=torch.int32)[go], (ch - cl)[go])
+        order = torch.argsort((~inside).to(torch.uint8), dim=-1, stable=True)
+        vals = torch.gather(torch.where(inside, self.bits, INT_MAX), -1, order)
+        vals = torch.nn.functional.pad(vals, (0, 32), value=INT_MAX)[:, :32]
+        self.mine = torch.where(go[:, None], vals, self.mine)
+        self.base = torch.where(go, cl, self.base)
+        self.lo_pack = torch.where(go, lo, self.lo_pack)
+        self.packed = self.packed | go
+
+
+def packed_search(bits: torch.Tensor, k: int, mode: str):
+    """τ under ``mode`` as the kernel finds it for rows of bits (R, M):
+    cnt(lo) and cnt(hi) carried each round, the bracket packed once it
+    holds ≤ 32 slots, rounds batch-wide as ``search_tau`` runs them.
+    Returns (τ, the mode's probes [(t, count)] in order, the counter)."""
+    mn = bits.min(-1).values
+    mx = torch.where(bits == SENT_BITS, -1, bits).max(-1).values
+    hi = torch.clamp_min(mx, 0)
+    lo = torch.minimum(mn - 1, hi)
+    cnt = PackedCounter(bits)
+    probes = []
+    if mode in ("no_bisect", "d2_only"):
+        return hi, probes, cnt
+    cl, ch = cnt.count(lo), cnt.count(hi)
+
+    def probe(t):
+        c = cnt.count(t)
+        probes.append((t, c))
+        return c
+
+    def bisect(lo, hi, cl, ch, rounds=None):
+        r = 0
+        while (r < rounds) if rounds is not None else bool(
+                (hi - lo > 1).any()):
+            cnt.pack(lo, hi, cl, ch)
+            mid = lo + torch.div(hi - lo, 2, rounding_mode="floor")
+            c = probe(mid)
+            ge = c >= k
+            hi, ch = torch.where(ge, mid, hi), torch.where(ge, c, ch)
+            lo, cl = torch.where(ge, lo, mid), torch.where(ge, cl, c)
+            r += 1
+        return hi
+
+    def nary(lo, hi, cl, ch, arity, rounds=None):
+        r = 0
+        while (r < rounds) if rounds is not None else bool(
+                (hi - lo > 1).any()):
+            cnt.pack(lo, hi, cl, ch)
+            q = torch.clamp_min(torch.div(hi - lo, arity,
+                                          rounding_mode="floor"), 1)
+            nlo, nhi, ncl, nch = lo, hi, cl, ch
+            for i in range(1, arity):
+                m = torch.minimum(lo + i * q, hi)
+                c = probe(m)
+                up = (c >= k) & (m < nhi)
+                down = (c < k) & (m > nlo)
+                nhi, nch = torch.where(up, m, nhi), torch.where(up, c, nch)
+                nlo, ncl = torch.where(down, m, nlo), torch.where(down, c, ncl)
+            lo, hi, cl, ch = nlo, nhi, ncl, nch
+            r += 1
+        return hi
+
+    if mode == "fixed26":
+        return bisect(lo, hi, cl, ch, 26), probes, cnt
+    if mode in ("quad", "quad_fixed", "oct_fixed"):
+        arity = 8 if mode == "oct_fixed" else 4
+        rounds = {"quad": None, "quad_fixed": 14, "oct_fixed": 10}[mode]
+        return nary(lo, hi, cl, ch, arity, rounds), probes, cnt
+    if mode == "interp4":
+        f32 = torch.float32
+        gl, gh = torch.zeros_like(lo), probe(hi)   # the guess's counts
+        for _ in range(4):
+            tlo = torch.clamp_min(lo, 0).view(f32)
+            thi = hi.view(f32)
+            denom = torch.clamp_min((gh - gl).to(f32), 1.0)
+            tg = tlo + (thi - tlo) * ((k - gl).to(f32) / denom)
+            gb = torch.minimum(torch.maximum(tg.view(torch.int32), lo + 1),
+                               torch.maximum(hi - 1, lo + 1))
+            c = probe(gb)
+            ge = c >= k
+            hi = torch.where(ge, gb, hi)
+            ch, gh = torch.where(ge, c, ch), torch.where(ge, c, gh)
+            lo = torch.where(ge, lo, gb)
+            cl, gl = torch.where(ge, cl, c), torch.where(ge, gl, c)
+        return bisect(lo, hi, cl, ch), probes, cnt
+    return bisect(lo, hi, cl, ch), probes, cnt     # full, no_moments, no_am
+
+
+def _halve(a: torch.Tensor, h: int) -> torch.Tensor:
+    """One halving step over lanes (dim 1 of a (R, 32, n) tensor): lane l
+    keeps a[l, j + h·up] + a[l ^ h, j + h·up] for j < h, up = l & h."""
+    lane = torch.arange(32)
+    up = ((lane & h) != 0).long()[None, :, None]
+    j = torch.arange(h)[None, None, :] + h * up              # (1, 32, h)
+    j = j.expand(a.shape[0], 32, h)
+    mine = torch.gather(a, 2, j)
+    theirs = torch.gather(a[:, lane ^ h], 2, j)
+    return mine + theirs
+
+
+def halving_moments(qpts, cpts, cand, qrow, valid, k: int, mode: str):
+    """The 35 sums as the kernel adds them, (T, C, 35): the members
+    (below τ, or at τ with a positive tie weight) in slot order, member i
+    chained on lane i % 32 in round i // 32 (each monomial the plain
+    version's float), then the lanes' partial sums by recursive halving:
+    columns 0–31 over lane bits 16, 8, 4, 2, 1 (lane l ends with column
+    l), columns 32–34 (and a zero) over bits 2, 1, then a butterfly over
+    4, 8, 16."""
+    T, C, _ = qpts.shape
+    r, d2, _ = plain_d2(qpts, cpts, cand, qrow, valid)
+    bits = d2.view(torch.int32)
+    tau = search_tau(bits, k, mode)
+    tb = tau[..., None]
+    lt, le = bits < tb, bits <= tb
+    count_lt, count_le = lt.sum(-1), le.sum(-1)
+    count_eq = torch.clamp_min(count_le - count_lt, 1)
+    w_tie = torch.clamp((k - count_lt).to(torch.float32)
+                        / count_eq.to(torch.float32), 0.0, 1.0)
+    eq = le & ~lt
+    member = lt | (eq & (w_tie[..., None] > 0))
+    sigma = torch.sqrt(torch.clamp_min(tau.view(torch.float32), 0.0))
+    inv = torch.div(torch.ones_like(sigma), torch.clamp_min(sigma, 1e-30))
+    hat = [torch.clamp(x * inv[..., None], -2.0, 2.0) for x in r]
+    monos = [torch.where(lt, 1.0, w_tie[..., None].expand_as(d2))]
+    monos += [None] * len(_CHAIN)
+    for i, parent, axis in _CHAIN:
+        monos[i] = monos[parent] * hat[axis]
+    mono = torch.stack(monos, -1).reshape(T * C, -1, 35)
+    member = member.reshape(T * C, -1)
+    pos = torch.cumsum(member.to(torch.int64), -1) - 1
+    lane_of, round_of = pos % 32, pos // 32
+    acc = torch.zeros(T * C, 32, 35)
+    for rnd in range(int(round_of[member].max()) + 1 if member.any() else 0):
+        sel = member & (round_of == rnd)
+        add = torch.where(sel[..., None], mono, 0.0)
+        idx = torch.where(sel, lane_of, 0)[..., None].expand_as(add)
+        # one member a lane a round: each lane's add is acc + its monomial
+        part = torch.zeros_like(acc).scatter_add_(1, idx, add)
+        acc = acc + part
+    a = acc[..., :32]
+    for h in (16, 8, 4, 2, 1):
+        a = _halve(a, h)
+    t = torch.cat([acc[..., 32:], torch.zeros(T * C, 32, 1)], -1)
+    for h in (2, 1):
+        t = _halve(t, h)
+    x = t[..., 0]
+    for off in (4, 8, 16):
+        x = x + x[:, torch.arange(32) ^ off]
+    out = torch.cat([a[..., 0], x[:, :3]], -1)
+    return out.reshape(T, C, 35)
 
 
 # --- the tests ---
@@ -268,3 +461,74 @@ def test_moments_like_split_is_the_plain_version(data, s):
         for n in range(CHUNK):
             seq = seq + d[..., n]
         assert not torch.equal(seq, _halving_sum(d))
+
+
+VARIANT_TILES = ("random", "lattice", "sparse", "empty", "ties")
+
+
+def _tile_ops(case, M=300, T=3, C=40):
+    return [torch.from_numpy(a)
+            for a in _variant_tile(len(case) + M, T=T, C=C, M=M, case=case)]
+
+
+@pytest.mark.parametrize("case", VARIANT_TILES)
+def test_packed_search_is_search_tau(case, monkeypatch):
+    """In every mode the packed counts are the full counts: the same
+    probes, the same counts in the same order and the same τ as
+    ``search_tau``; on the random tile nearly every row packs, on the
+    tied one (> 64 slots at the kth d²) none does."""
+    k = 64
+    _, d2, _ = plain_d2(*_tile_ops(case))
+    bits = d2.view(torch.int32).reshape(-1, d2.shape[-1])
+    for mode in MODES:
+        seen = []
+        count_le = moments_split._count_le
+
+        def recorded(b, t):
+            c = count_le(b, t)
+            seen.append((t, c))
+            return c
+
+        monkeypatch.setattr(moments_split, "_count_le", recorded)
+        want = search_tau(bits, k, mode)
+        monkeypatch.setattr(moments_split, "_count_le", count_le)
+        got, probes, cnt = packed_search(bits, k, mode)
+        assert torch.equal(got, want), mode
+        assert len(probes) == len(seen), mode
+        for (t, c), (t0, c0) in zip(probes, seen):
+            assert torch.equal(t, t0) and torch.equal(c, c0), mode
+        # the kernel takes count_le / count_lt at τ from the packed
+        # bracket where τ − 1 is at or above its lo
+        at = cnt.packed & (got - 1 >= cnt.lo_pack)
+        for t in (got, got - 1):
+            full = (bits <= t[:, None]).sum(-1, dtype=torch.int32)
+            assert torch.equal(cnt.count(t)[at], full[at]), mode
+        if mode == "full" and case == "random":
+            assert float(cnt.packed.float().mean()) > 0.9
+            assert float(at.float().mean()) > 0.9
+        if mode == "full" and case == "ties":
+            assert not bool(cnt.packed.any())
+
+
+@pytest.mark.parametrize("case", VARIANT_TILES)
+@pytest.mark.parametrize("M", [40, 300])
+def test_halving_moments_within_tolerance(case, M):
+    """The kernel's order of the 35 sums stays within count_le²·2⁻²⁴ of
+    the plain version's in every mode that sums, and a row without a
+    weighted member (column 0, the weights' sum, is 0) has 35 zero sums
+    in both. (A sum that cancels to 0 in the plain version's order need
+    not in another: on the lattice some do not.)"""
+    k = 16 if M == 40 else 64
+    ops = _tile_ops(case, M=M, C=min(40, M - 8))
+    for mode in ("full", "fixed26", "quad_fixed", "oct_fixed", "interp4",
+                 "no_bisect", "no_am"):
+        want = moments_variant_plain(*ops, k, mode=mode)
+        sums = halving_moments(*ops, k, mode)
+        got = torch.cat([sums, want[..., 35:]], -1)
+        differing, ratio, _ = stats_agreement(got, want)
+        assert differing == 0 and ratio <= 1.0, (mode, ratio)
+        nobody = want[..., 0] == 0
+        assert bool((sums[nobody] == 0).all()), mode
+        assert bool((want[..., :35][nobody] == 0).all()), mode
+        if case == "empty":
+            assert bool(nobody.any())

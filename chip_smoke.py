@@ -60,7 +60,7 @@ without printing its result line:
       with an all-True mask (K as unmasked) and with the farthest half
       of every row masked (no NaN);
 6. timings, each printed beside the card's name and power limit (after
-   phases 7 to 11, which print their own);
+   phases 7 to 12, which print their own);
 7. the device half of the mesh path:
    a. ``estimate_and_orient_normals(cloud, k=50)`` on the same cloud
       (hierarchical): on every bucket of the layouts ``plan_normals``
@@ -153,11 +153,39 @@ without printing its result line:
        (``library_ms``, ``library_device_ms``), the bound; its first
        design's time and the no-FMA ceiling (twice the bound, an FMUL
        and an FADD a multiply-add) in the log;
-12. the kernel table (one JSON line, eight kernels, each with the card's
-   name and power limit; each package kernel's ``mesh_path`` lists its
-   records at phase 7's and phase 8's shapes, ``validation`` its
-   launches in phase 9, ``distributed`` its launches in 10a-10c; each
-   script kernel names its ``script``) and the result line.
+12. the reference-API façade, the command line and the demos
+    (``pct_tpu_torch.compat``, ``cli``, ``demos``) on the same 1M torus,
+    each path driven with the counts set to 0 just before it; neither
+    ``viz`` nor matplotlib is imported (the card's machine has no
+    matplotlib):
+    a. ``compat.PointCloud(points, k_neighbors=20)`` on the card (its
+       norms printed): ``plant_kdtree`` with the explicit chain (rows
+       launches as phase 5b, indices and dists bit-identical to phase
+       5b's ``knn_cloud_grid``, K, H and the fit normals bit-identical
+       to phase 5c's ``curvature_pipeline``, no NaN, median K error <=
+       1.5e-3); the implicit chain within phase 5d's k=20 limits; PCA at
+       k=20 (k1 >= k2, no NaN); ``compute_normals(50)`` with its
+       launches at k=50, kv=12 and kc=16 as phase 7a counts them (on
+       the façade's cloud, whose padded capacity, and so its coarse
+       stride, differs), bit-identical to phase 7a's
+       ``estimate_and_orient_normals``; the PLY export read back equal;
+       ``estimate_curvature`` at its default k=100 (rows launches on the
+       k=100 layout, >= 0, no NaN); ``downsample=True`` keeping phase
+       7c's rows;
+    b. ``cli.main(["curvature", ...])`` in-process on the torus as a
+       points-only binary PLY (rows launches as phase 5b; K and H read
+       back equal to phase 5c's; the wall split into PLY read, compute
+       and PLY write) and ``cli.main(["downsample", ...])`` (the rows
+       written equal phase 7c's);
+    c. both demos' ``run()`` on the card against ``run(device="cpu")``
+       within 1e-5, with the JAX tests' sign and residual rules;
+    each path's warm wall beside the card's name and power limit;
+13. the kernel table (one JSON line, eight kernels, each with the card's
+    name and power limit; each package kernel's ``mesh_path`` lists its
+    records at phase 7's and phase 8's shapes, ``validation`` its
+    launches in phase 9, ``distributed`` its launches in 10a-10c,
+    ``compat`` its launches in phase 12; each script kernel names its
+    ``script``) and the result line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -2001,6 +2029,259 @@ def micro_phase(label, launches):
     return [split, mxu_row, like_row]
 
 
+def knn_buckets(points, n, k):
+    """The buckets ``knn_cloud_grid(k)`` runs on a cloud's padded points
+    (its probe: one rows launch a bucket)."""
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+
+    grid = build_grid(points, n, estimate_cell_size(points, n, k))
+    return cellknn.probe_grid_buckets(grid)[0]
+
+
+def close_to_ascii(got, want):
+    """``got``, read back from an ASCII PLY, equals ``want`` up to the
+    writer's 8 significant digits (``%.8g``) and the float32 parse."""
+    import numpy as np
+
+    want = np.asarray(want, np.float64)
+    return bool((np.abs(np.asarray(got, np.float64) - want)
+                 <= 2e-7 * np.abs(want)).all())
+
+
+def facade_phase(label, cloud, pts, counters, none, n_knn20):
+    """Phase 12: the reference-API façade, the command line and the demos
+    on the 1M torus, each path driven with the counts set to 0 just
+    before it and read just after. ``n_knn20`` is phase 5b's rows
+    launches a call. Neither ``viz`` nor matplotlib is imported."""
+    import tempfile
+
+    import numpy as np
+
+    import pct_tpu_torch.io as tio
+    import pct_tpu_torch.mesh.normals as nm
+    from pct_tpu_torch import cli, compat
+    from pct_tpu_torch.demos import (
+        explicit_surfaces_demo,
+        implicit_surfaces_demo,
+    )
+    from pct_tpu_torch.mesh import estimate_and_orient_normals, voxel_downsample
+    from pct_tpu_torch.neighbors import knn_cloud_grid
+    from pct_tpu_torch.pipeline import curvature_pipeline
+    from pct_tpu_torch.shapes import analytic_curvatures
+
+    t_phase = time.perf_counter()
+    n = len(pts)
+    Ka, Ha = analytic_curvatures("torus", pts)
+    launches = {}     # path -> launches of its driven run
+    walls = {}        # path -> wall of each driven call (s)
+
+    def counted(path, call, want, warm=0, want_by_k=None):
+        """``drive``: counts to 0, ``1 + warm`` calls, each holding
+        ``want`` launches (and ``want_by_k``); the last call's result."""
+        res, walls[path], launches[path] = drive(
+            call, path, counters, {**none, **want}, warm=warm,
+            want_by_k=want_by_k)
+        return res
+
+    def no_plots():
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] ==
+                        "matplotlib" or m.startswith("pct_tpu_torch.viz"))
+        check(not loaded, f"phase 12 loaded no plotting module ({loaded})")
+
+    def host(t):
+        return t[:n].cpu().numpy()
+
+    no_plots()
+    # the references, each the call of an earlier phase (not counted)
+    ref = knn_cloud_grid(cloud, K_LIST)[0]                       # 5b
+    idx_5b, d_5b = host(ref.indices), host(ref.dists)
+    ref = curvature_pipeline(cloud, K_LIST)                      # 5c
+    K_5c, H_5c, nrm_5c = host(ref.curv.K), host(ref.curv.H), host(ref.normals)
+    out, kept = voxel_downsample(cloud.points, n, VOXEL, mode="first")  # 7c
+    ds_7c = out[:int(kept)].cpu().numpy()
+    del ref, out
+
+    # --- 12a. the façade ---
+    pc = counted("construction", lambda: compat.PointCloud(
+        points=pts, k_neighbors=K_LIST), {}, warm=1)
+    check(pc.cloud.points.device.type == "cuda" and pc.num_points == n,
+          "the façade's cloud lives on the card")
+    p64 = pts.astype(np.float64)
+    log(f"façade: {n} points, capacity {pc.cloud.capacity}; norms l1 "
+        f"{pc.l1_norm!r}, l2 {pc.l2_norm!r}, linf {pc.linf_norm!r}")
+    check(pc.l2_norm == float(np.linalg.norm(p64, 2))
+          and pc.l1_norm == float(np.linalg.norm(p64, 1))
+          and pc.linf_norm == float(np.linalg.norm(p64, np.inf)),
+          "façade norms = numpy's matrix norms")
+
+    def plant_and_fit():
+        pc.quadratic_coefficients = None          # refit on every call
+        idx, d = pc.plant_kdtree()
+        K, H = pc.compute_pointwise_explicit_quadratic_curvature()
+        return idx, d, K, H
+
+    idx, d, K, H = counted("plant_kdtree + explicit", plant_and_fit,
+                           {"select_rows": n_knn20}, warm=1)
+    check(isinstance(idx, np.ndarray) and idx.shape == (n, K_LIST)
+          and isinstance(K, np.ndarray), "numpy attributes of (n, k)")
+    check(np.array_equal(idx, idx_5b) and np.array_equal(d, d_5b),
+          "plant_kdtree: indices and dists bit-identical to phase 5b")
+    relK = np.abs(K - Ka) / np.abs(Ka).max()
+    med = float(np.median(relK))
+    log(f"façade explicit k={K_LIST}: K/H bit-identical to phase 5c "
+        f"{np.array_equal(K, K_5c)} / {np.array_equal(H, H_5c)}, NaN "
+        f"{int(np.isnan(K).sum())}, median scale-relative K error {med:.4e}")
+    check(np.array_equal(K, K_5c) and np.array_equal(H, H_5c),
+          "explicit chain: K and H bit-identical to phase 5c")
+    check(not np.isnan(K).any() and med <= 1.5e-3,
+          "explicit chain: no NaN, median K error <= 1.5e-3")
+    check(np.array_equal(pc.estimated_normals, nrm_5c),
+          "explicit chain: fit normals bit-identical to phase 5c")
+
+    K, H = counted("implicit", pc.compute_pointwise_implicit_quadric_curvature,
+                   {})
+    med_K = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
+    med_H = float(np.median(np.abs(np.abs(H) - np.abs(Ha)) / np.abs(Ha)))
+    log(f"façade implicit k={K_LIST} (exact): NaN {int(np.isnan(K).sum())}, "
+        f"median scale-relative K error {med_K:.4e}, median relative |H| "
+        f"error {med_H:.4e}")
+    check(not np.isnan(K).any() and not np.isnan(H).any(),
+          "implicit chain: no NaN")
+    check(med_K <= 7e-3 and med_H <= 1.25e-2,
+          "implicit chain: median K <= 7e-3, |H| <= 1.25e-2")
+
+    k1, k2 = counted("pca", lambda: pc.
+                     principal_curvatures_via_principal_component_analysis(
+                         K_LIST), {"select_rows": n_knn20})
+    check(k1.shape == (n,) and not np.isnan(k1).any()
+          and not np.isnan(k2).any() and bool((k1 >= k2).all()),
+          "PCA: k1 >= k2, no NaN")
+
+    plan = nm.plan_normals(pc.cloud.points, n, K_NORMALS)
+    kv, kc = plan.kv, plan.kc
+    want_n = {"moments": len(plan.moments[0]),
+              "select_rows": len(plan.rows[0]) + 1}
+    want_k = {"select_rows": {kv: len(plan.rows[0]), kc: 1}}
+    log(f"façade normals k={K_NORMALS}: stride {plan.stride} (phase 7a's "
+        f"cloud: {nm.plan_normals(cloud.points, n, K_NORMALS).stride}), "
+        f"launches a call {want_n}, by k {want_k['select_rows']}")
+    del plan
+    nrm = counted("compute_normals", lambda: pc.compute_normals(K_NORMALS),
+                  want_n, warm=1, want_by_k=want_k)
+    nrm_7a = host(estimate_and_orient_normals(cloud, K_NORMALS))
+    agree = tube_normal_agreement(nrm, pts)
+    log(f"compute_normals vs phase 7a's call (capacity {cloud.capacity}): "
+        f"bit-identical rows {float((nrm == nrm_7a).all(1).mean()):.6f}; "
+        f"tube-normal agreement {agree:.6f}")
+    check(np.array_equal(nrm, nrm_7a), "compute_normals bit-identical to "
+          "phase 7a's estimate_and_orient_normals")
+    del nrm_7a
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        path = str(tmp / "facade.ply")
+        counted("export", lambda: pc.export_ply_with_curvature_and_normals(
+            path), {})
+        back = tio.read_ply(path)
+        check(close_to_ascii(back.points, pc.points)
+              and close_to_ascii(back.normals, pc.normals)
+              and close_to_ascii(back.vertex_props["gaussian_curvature"],
+                                 pc.K_quadratic)
+              and close_to_ascii(back.vertex_props["mean_curvature"],
+                                 pc.H_quadratic),
+              "export_ply_with_curvature_and_normals read back equal")
+        del back
+
+        n100 = len(knn_buckets(pc.cloud.points, n, K_MOM))
+        sv = counted("estimate_curvature", lambda: compat.estimate_curvature(
+            pts), {"select_rows": n100})
+        log(f"estimate_curvature(k={K_MOM}): {n100} rows launches, min "
+            f"{float(sv.min()):.4e}, median {float(np.median(sv)):.4e}")
+        check(sv.shape == (n,) and not np.isnan(sv).any()
+              and bool((sv >= 0).all()), "estimate_curvature >= 0, no NaN")
+        del sv, pc
+
+        ds = counted("downsample=True", lambda: compat.PointCloud(
+            points=pts, downsample=True, voxel_size=VOXEL), {})
+        log(f"PointCloud(downsample=True, voxel {VOXEL}): {ds.num_points} "
+            f"kept, phase 7c's first mode {len(ds_7c)}")
+        check(ds.num_points == len(ds_7c) and np.array_equal(ds.points, ds_7c),
+              "downsample=True keeps phase 7c's rows")
+        del ds
+
+        # --- 12b. the command line, in-process ---
+        inp, out, out_ds = (str(tmp / name) for name in (
+            "torus.ply", "curv.ply", "down.ply"))
+        tio.write_ply(inp, pts, binary=True)
+        io_s = {}
+
+        def timed(name, fn):
+            def wrapped(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    io_s[name] = time.perf_counter() - t0
+            return wrapped
+
+        saved = tio.load_points, tio.write_ply
+        tio.load_points = timed("read", saved[0])
+        tio.write_ply = timed("write", saved[1])
+        try:
+            counted("cli curvature", lambda: cli.main(
+                ["curvature", inp, out, "--k", str(K_LIST)]),
+                {"select_rows": n_knn20})
+        finally:
+            tio.load_points, tio.write_ply = saved
+        io_s["compute"] = walls["cli curvature"][0] - io_s["read"] \
+            - io_s["write"]
+        back = tio.read_ply(out)
+        check(close_to_ascii(back.points, pts)
+              and close_to_ascii(back.vertex_props["gaussian_curvature"], K_5c)
+              and close_to_ascii(back.vertex_props["mean_curvature"], H_5c),
+              "cli curvature: points, K and H read back equal phase 5c's")
+        del back
+        counted("cli downsample", lambda: cli.main(
+            ["downsample", inp, out_ds, "--voxel-size", str(VOXEL)]), {})
+        back = tio.read_ply(out_ds).points
+        check(back.shape == ds_7c.shape and close_to_ascii(back, ds_7c),
+              "cli downsample: the rows written equal phase 7c's")
+
+    # --- 12c. the demos, on the card against the CPU ---
+    for name, mod in (("explicit demo", explicit_surfaces_demo),
+                      ("implicit demo", implicit_surfaces_demo)):
+        got = counted(name, mod.run, {})
+        want = mod.run(device="cpu")
+        diff = max(abs(a - b) for key in want
+                   for a, b in zip(got[key], want[key]))
+        log(f"{name}: card vs CPU max |d| {diff:.3e}; {got}")
+        check(list(got) == list(want) and diff <= 1e-5,
+              f"{name}: card within 1e-5 of the CPU")
+        if mod is explicit_surfaces_demo:
+            check(got["paraboloid"][0] > 0.5 and got["saddle"][0] < -0.5
+                  and abs(got["saddle"][1]) < 0.05
+                  and abs(got["plane"][0]) < 1e-3
+                  and abs(got["monkey_saddle"][0]) < 0.2,
+                  "explicit demo: the JAX tests' sign rules")
+        else:
+            check(all(got[s][0] < 1e-3 for s in ("sphere", "cylinder",
+                                                 "plane"))
+                  and abs(got["sphere"][1] / (1 / 1.5**2) - 1) <= 0.05,
+                  "implicit demo: the JAX tests' residual rules")
+    no_plots()
+
+    log(f"[{label}] phase 12 warm walls, 1M torus (s, the last of "
+        "the driven calls): " + ", ".join(
+            f"{path} {w[-1]:.4f}" for path, w in walls.items()))
+    log(f"[{label}] cli curvature, 1M torus: wall "
+        f"{walls['cli curvature'][0]:.4f} s = PLY read {io_s['read']:.4f} "
+        f"+ compute {io_s['compute']:.4f} + PLY write {io_s['write']:.4f}")
+    log(f"[{label}] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return {name: {path: got[name] for path, got in launches.items()
+                   if got[name]} for name in counters}
+
+
 def mesh_record(rec, flops=None):
     """A kernel's record at one of phase 7's shapes, per call of the
     driven entry point, with its buckets."""
@@ -2241,6 +2522,9 @@ def main():
     # --- 11. the TPU scripts' kernels (no entry point launches them) ---
     micro_rows = micro_phase(label, launches20)
 
+    # --- 12. the reference-API façade, the command line, the demos ---
+    facade = facade_phase(label, cloud, pts, counters, none, len(spec_knn))
+
     # --- 6. numbers ---
     for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
                         (f"fast_curvature k={K_MOM}", walls100),
@@ -2351,14 +2635,15 @@ def main():
         r["card"] = label
         r["validation"] = validation.get(r["name"], {})   # phase 9 checks 0
         r["distributed"] = distributed[r["name"]]
+        r["compat"] = facade[r["name"]]                  # phase 12 checks 0
         log(f"[{label}] {r['name']} launches in phase 9: {r['validation']}, "
-            f"in phase 10: {r['distributed']}")
+            f"in phase 10: {r['distributed']}, in phase 12: {r['compat']}")
     for tag, walls in dist_walls.items():
         log(f"[{label}] phase {tag}, 1M torus: warm wall "
             f"{statistics.median(walls[1:]):.4f} s/call (median of "
             f"{len(walls) - 1}; cold first call {walls[0]:.3f} s)")
 
-    # --- 12. result ---
+    # --- 13. result ---
     log(f"[{label}] chip_smoke.py: {time.perf_counter() - t_start:.1f} s "
         "from start to the result")
     log(f"kernels: {[r['name'] for r in rows]}")

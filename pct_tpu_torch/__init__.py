@@ -3,8 +3,8 @@
 The JAX package ``pct_tpu`` stays the reference; this package mirrors its
 sub-package layout (``core``, ``neighbors``, ``ops``, ``fit``,
 ``curvature``, ``pipeline``, ``mesh``, ``shapes``, ``io``, ``validate``,
-``distributed``)
-so each module's counterpart is easy to find. It imports ``torch``, ``numpy`` and, for
+``distributed``, ``viz``, ``demos``, and the modules ``compat`` and
+``cli``) so each module's counterpart is easy to find. It imports ``torch``, ``numpy`` and, for
 the hole fill's Delaunay triangulation, ``scipy``; nothing of JAX.
 
 Ported so far:
@@ -37,7 +37,13 @@ Ported so far:
   ``run_sweep``, ``run_scans``), which drives the paths above;
 - the distributed layer, ``distributed`` (``sharded_curvature``, the
   slab path with its halo exchange, the sample-sort grid build) on
-  ``torch.distributed``: NCCL on the card, gloo on the CPU.
+  ``torch.distributed``: NCCL on the card, gloo on the CPU;
+- the reference-API façade, ``compat`` (``PointCloud`` of the original
+  toolbox and its ``utils`` functions, on the modules above), the
+  command line ``cli`` (``python -m pct_tpu_torch.cli``, the
+  ``pct-tpu-torch`` script), the fitting ``demos`` and the plots and
+  viewers of ``viz`` (matplotlib, imported only by the calls that
+  plot). This package imports none of these four.
 
 The kernels are hand-written CUDA C++ for ``sm_90a``, built with nvcc at
 first use. Entry points run on ``cuda`` unless the caller passes

@@ -211,12 +211,15 @@ def covariance_from_moments(m: torch.Tensor) -> torch.Tensor:
 
 
 def curvature_from_moments(m: torch.Tensor, sigma: torch.Tensor,
-                           nearest: torch.Tensor, kth_pt: torch.Tensor):
+                           nearest: torch.Tensor, kth_pt: torch.Tensor,
+                           rotation: str = "symbolic"):
     """Moments → (Curvatures, normals): the same chain as
     tangent_frames + fit_quadratic + explicit_curvatures.
 
     nearest/kth_pt: (..., 3) offsets p - q of the nearest and the kth
     neighbor (unscaled), for the reference's sign fix pts[-1] - pts[0].
+    ``rotation`` is accepted for the JAX package's signature: the port
+    has one contraction (``rotated_moments``) for every value.
     """
     _, n = smallest_eigvec3(covariance_from_moments(m))
     flip = torch.sum(n * (kth_pt - nearest), dim=-1) < 0.0
@@ -229,11 +232,14 @@ def curvature_from_moments(m: torch.Tensor, sigma: torch.Tensor,
 def curvature_from_moments_chunked(m: torch.Tensor, sigma: torch.Tensor,
                                    nearest: torch.Tensor,
                                    kth_pt: torch.Tensor,
-                                   chunk: int = CHUNK_ROWS):
+                                   chunk: int = CHUNK_ROWS,
+                                   rotation: str = "symbolic"):
     """``curvature_from_moments`` over (N, ...) rows in chunks of
     ``chunk`` rows, which bounds the (rows, 3,3,3,3) intermediates of
     the rotation. Row-for-row, so the result does not depend on the
-    chunking beyond the rounding of the small batched products."""
+    chunking beyond the rounding of the small batched products.
+    ``rotation`` is accepted for the JAX package's signature: the port
+    has one contraction for every value."""
     if m.shape[0] <= chunk:
         return curvature_from_moments(m, sigma, nearest, kth_pt)
     parts = [curvature_from_moments(m[s:s + chunk], sigma[s:s + chunk],

@@ -666,8 +666,8 @@ def probe_grid(grid: GridIndex, capacity_cap: int = 256):
     return cells, capacity, mc, cand_cap
 
 
-def knn_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int, spec,
-                          original_ids: bool = True,
+def knn_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
+                          bucket_spec, original_ids: bool = True,
                           lean: bool = False) -> NeighborResult:
     """Self-excluded kNN for every point over occupancy-bucketed cells,
     rows in SORTED order (row r's query is grid.sorted_points[r]).
@@ -691,7 +691,8 @@ def knn_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int, spec,
     cell_in = torch.zeros((mc_total,), dtype=torch.bool, device=dev)
     idxs, dsts, exacts = [], [], []
     off = 0
-    for sp, (args, slot) in zip(spec, _bucket_tables(grid, cells, spec)):
+    for sp, (args, slot) in zip(bucket_spec, _bucket_tables(
+            grid, cells, bucket_spec)):
         rows, dists, _, _, _, ok_q, exact = _tile_select(
             grid, args, k, sp.capacity, sp.cand_cap, want="rows",
             with_ids=original_ids)

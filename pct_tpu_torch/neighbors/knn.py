@@ -141,8 +141,9 @@ def ball_grid(grid: GridIndex, queries: torch.Tensor, radius,
 
 
 def knn_cloud_grid(cloud, k: int, capacity: int | None = None,
-                   rings: int = 1, cell_size=None, exact_fallback: bool = True,
-                   *, device: str | torch.device = "cuda"):
+                   rings: int = 1, cell_size=None, tile: int = 512,
+                   exact_fallback: bool = True, *,
+                   device: str | torch.device = "cuda"):
     """Grid build (auto cell size) + self-excluded kNN of every point of
     a PointCloud on ``device`` (default ``cuda``; raises RuntimeError
     without a card), with certified exactness. Returns (NeighborResult in
@@ -150,7 +151,8 @@ def knn_cloud_grid(cloud, k: int, capacity: int | None = None,
 
     The default runs the occupancy-bucketed cell loop with probed
     capacities; an explicit ``capacity`` runs one bucket of that capacity;
-    ``rings != 1`` runs the query-centric ``knn_grid``. ``exact_fallback``
+    ``rings != 1`` runs the query-centric ``knn_grid`` in chunks of
+    ``tile`` queries (the other routes take no chunk). ``exact_fallback``
     re-resolves the rows the grid could not certify through brute force
     (one host sync to find them; a no-op on well-behaved clouds); when
     more than half of the rows need it, the whole cloud goes through
@@ -172,7 +174,7 @@ def knn_cloud_grid(cloud, k: int, capacity: int | None = None,
     if rings != 1:
         # the cell-centric loop is a 27-cell (rings=1) design
         res = knn_grid(grid, grid.sorted_points, k, query_indices=grid.order,
-                       capacity=capacity or 64, rings=rings)
+                       capacity=capacity or 64, rings=rings, tile=tile)
     elif capacity is not None:
         res = knn_all_points(grid, k, capacity=capacity)
     else:

@@ -136,7 +136,16 @@ NEW_MODULES = ["pct_tpu_torch.experimental",
                "pct_tpu_torch.validate",
                "pct_tpu_torch.validate.harness",
                "pct_tpu_torch.validate.sweep",
-               "pct_tpu_torch.validate.scans"]
+               "pct_tpu_torch.validate.scans",
+               "pct_tpu_torch.compat",
+               "pct_tpu_torch.cli",
+               "pct_tpu_torch.viz",
+               "pct_tpu_torch.viz.plots",
+               "pct_tpu_torch.viz.results",
+               "pct_tpu_torch.viz.view",
+               "pct_tpu_torch.demos",
+               "pct_tpu_torch.demos.explicit_surfaces_demo",
+               "pct_tpu_torch.demos.implicit_surfaces_demo"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -246,3 +255,56 @@ def test_build_cache_keys_on_shared_headers(tmp_path, monkeypatch):
     assert third not in (first, second)
     (csrc / "band_select.cu").write_text("// another source\n")
     assert build.library_path("select_rows") == third
+
+
+def test_facade_cli_and_demos_leave_matplotlib_unloaded():
+    """matplotlib is not on the card's machine: the façade, the command
+    line and the demos import it (through ``viz``) only inside the calls
+    that plot."""
+    code = ("import sys; import pct_tpu_torch.compat, pct_tpu_torch.cli, "
+            "pct_tpu_torch.demos.explicit_surfaces_demo, "
+            "pct_tpu_torch.demos.implicit_surfaces_demo; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] == 'matplotlib' or m.startswith("
+            "'pct_tpu_torch.viz')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_facade_cli_and_demos_default_to_cuda(monkeypatch, tmp_path):
+    """The façade, its device functions, the command line's device
+    commands and the demos run on ``cuda`` unless told otherwise, and
+    raise without a card before writing anything."""
+    from pct_tpu_torch import cli, compat
+    from pct_tpu_torch.demos import (
+        explicit_surfaces_demo,
+        implicit_surfaces_demo,
+    )
+    from pct_tpu_torch.io import write_ply
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).standard_normal((64, 3)).astype(np.float32)
+    inp = tmp_path / "in.ply"
+    write_ply(str(inp), pts)
+    before = sorted(p.name for p in tmp_path.iterdir())
+    calls = [
+        lambda: compat.PointCloud(points=pts),
+        lambda: compat.PointCloud(points=pts, downsample=True),
+        lambda: compat.estimate_curvature(pts),
+        lambda: compat.average_distance_using_kd_tree(pts),
+        lambda: compat.create_mesh_with_curvature(pts),
+        lambda: compat.load_mesh_compute_energies(
+            pts, np.zeros((1, 3), np.int32), pts[:, 0], pts[:, 0]),
+        lambda: compat.validate_shape(str(inp)),
+        lambda: cli.main(["curvature", str(inp), str(tmp_path / "o.ply")]),
+        lambda: cli.main(["downsample", str(inp), str(tmp_path / "d.ply"),
+                          "--voxel-size", "0.1"]),
+        lambda: cli.main(["reconstruct", str(inp), str(tmp_path / "r.ply")]),
+        lambda: explicit_surfaces_demo.run(),
+        lambda: implicit_surfaces_demo.run(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert sorted(p.name for p in tmp_path.iterdir()) == before

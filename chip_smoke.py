@@ -180,12 +180,38 @@ without printing its result line:
     c. both demos' ``run()`` on the card against ``run(device="cpu")``
        within 1e-5, with the JAX tests' sign and residual rules;
     each path's warm wall beside the card's name and power limit;
+14. past 128 neighbors (the selects keep up to 1024), same cloud:
+    a. the rows, positions and coords kernels against their plain
+       versions, bit for bit, on every bucket of ``knn_cloud_grid(k)``'s
+       probe at k = 129, 200 and 256 (past WIDE_PLAIN_BUDGET_S of
+       plain-version time at 129 or 256, the later buckets' first
+       WIDE_LATE_ROWS cell rows) and on the first WIDE_CUT_ROWS cell
+       rows of each bucket at k = 512 and 1024 (the plain version runs
+       k rounds); each bucket's layout (staged or streamed, shared bytes
+       a block) logged; at k = 200 each bucket's kernel ms, plain ms,
+       the partial ``torch.topk`` yardstick and the bound; the band
+       kernel at k = 129 and 200 on phase 5e's operands, with every slot
+       computed and with the counts, on the row blocks the plain version
+       reaches in WIDE_BAND_PLAIN_S, and its time at k = 200;
+    b. at k = 200, each driven with the counts set to 0 just before it:
+       ``knn_cloud_grid`` (rows launches one a bucket, exact 1.0 after
+       the repair, kth distance against brute force),
+       ``fast_curvature(method="implicit")`` (the staged route: NaN 0,
+       exact 1.0, median K error printed, kth distance knn_cloud_grid's),
+       ``curvature_pipeline`` (neighbors bit-identical to
+       ``knn_cloud_grid``'s, no NaN), ``compat.estimate_curvature(
+       max_neighbors=200)`` (the surface variation of knn_cloud_grid's
+       neighbors, bit for bit);
+    c. ``knn_cloud_grid`` at k = 1024 once: ~8 GB of indices and
+       distances, its exact fraction (1.0), wall and peak memory, kth
+       distance against brute force;
 13. the kernel table (one JSON line, eight kernels, each with the card's
     name and power limit; each package kernel's ``mesh_path`` lists its
     records at phase 7's and phase 8's shapes, ``validation`` its
     launches in phase 9, ``distributed`` its launches in 10a-10c,
-    ``compat`` its launches in phase 12; each script kernel names its
-    ``script``) and the result line.
+    ``compat`` its launches in phase 12; the coords, rows, positions and
+    band kernels' ``k200`` their phase 14 numbers at k = 200; each script
+    kernel names its ``script``) and the result line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -252,6 +278,12 @@ JAX_MESH_TORUS = {"area_err": 0.11476384911336748e-2,
                   "bending_err": -6.738290212835834e-2,
                   "stretching": 0.14316698908805847}
 DEVICE_STAGES = ("normals", "smooth", "curvature", "energies")
+K_WIDE = 200                     # phase 14's entry points (past 128)
+WIDE_KS = (129, K_WIDE, 256, 512, 1024)   # phase 14's kernel checks
+WIDE_CUT_ROWS = 2                # cell rows a bucket compared at k > 256
+WIDE_PLAIN_BUDGET_S = 60.0       # plain-version time a k, untimed k
+WIDE_LATE_ROWS = 256             # cell rows a bucket compared past it
+WIDE_BAND_PLAIN_S = 8.0          # band plain-version time a (k, mode)
 
 
 def log(*a):
@@ -813,10 +845,11 @@ def kernel_row(name, source, replaces, launches, max_err, per_bucket,
     }
 
 
-def band_vs_plain(ops, k, bc, cap, band, counts=None):
+def band_vs_plain(ops, k, bc, cap, band, counts=None,
+                  budget_s=BAND_PLAIN_BUDGET_S):
     """The band kernel against its plain version, bit for bit, on row
-    blocks in a seeded random order until BAND_PLAIN_BUDGET_S of
-    plain-version time, with ``counts`` (None: every slot computed).
+    blocks in a seeded random order until ``budget_s`` of plain-version
+    time, with ``counts`` (None: every slot computed).
     Returns (kernel outputs, blocks checked, rows checked, max abs err,
     plain seconds, whether every block was checked)."""
     import torch
@@ -835,7 +868,7 @@ def band_vs_plain(ops, k, bc, cap, band, counts=None):
     max_err = 0.0
     plain_s = 0.0
     for s in range(0, nb, BAND_CHUNK_BLOCKS):
-        if plain_s > BAND_PLAIN_BUDGET_S:
+        if plain_s > budget_s:
             break
         idx = order[s:s + BAND_CHUNK_BLOCKS].to(ops[3].device)
         sub = ops[:3] + tuple(a[idx] for a in ops[3:])
@@ -854,7 +887,7 @@ def band_vs_plain(ops, k, bc, cap, band, counts=None):
         max_err = max(max_err, float((d_k[idx] - d_p).abs().max()),
                       float((r_k[idx] - r_p).abs().max()),
                       float((c_k[idx] - c_p).abs().max()))
-    log(f"band kernel vs plain ({mode}): {checked} of {nb} row blocks "
+    log(f"band kernel k={k} vs plain ({mode}): {checked} of {nb} row blocks "
         f"({checked * q} query slots) compared in {plain_s:.1f} s of "
         f"plain-version time, {mismatched} slots mismatched, max abs err "
         f"{max_err}")
@@ -2036,7 +2069,8 @@ def knn_buckets(points, n, k):
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
 
     grid = build_grid(points, n, estimate_cell_size(points, n, k))
-    return cellknn.probe_grid_buckets(grid)[0]
+    return cellknn.probe_grid_buckets(
+        grid, capacity_cap=cellknn.library_capacity_cap(k))[0]
 
 
 def close_to_ascii(got, want):
@@ -2282,6 +2316,291 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
                    if got[name]} for name in counters}
 
 
+def wide_vs_plain(cellknn, grid, cells, spec, k, label, timed=False,
+                  cut_rows=None):
+    """The rows, positions and coords kernels against their plain
+    versions, bit for bit, on every bucket of ``knn_cloud_grid(k)``'s
+    probe (the operands ``knn_cellwise_bucketed`` gives them); with
+    ``cut_rows`` on the first cut_rows cell rows of each bucket only;
+    untimed, past WIDE_PLAIN_BUDGET_S of plain-version time the later
+    buckets keep their first WIDE_LATE_ROWS cell rows. With ``timed``, each bucket's kernel ms (CUDA events, full bucket),
+    its plain ms (the compared call, one run), the partial ``torch.topk``
+    yardstick and the bound. Returns ({name: per-bucket rows}, largest
+    abs error, each bucket's layout)."""
+    import torch
+
+    from pct_tpu_torch.ops.select import (
+        knn_select,
+        knn_select_coords,
+        knn_select_rows,
+        select_coords_plain,
+        select_layout,
+        select_pos_plain,
+        select_rows_plain,
+    )
+
+    kernels = {"select_rows": (knn_select_rows, select_rows_plain),
+               "select_pos": (knn_select, select_pos_plain),
+               "select_coords": (knn_select_coords, select_coords_plain)}
+    per = {name: [] for name in kernels}
+    layouts = []
+    rows = mismatched = 0
+    max_err = plain_s = 0.0
+    for b, (sp, args) in enumerate(cellknn.bucketed_tile_args(
+            grid, cells, spec)):
+        ops = cellknn._select_operands(grid, args, sp.capacity, sp.cand_cap,
+                                       with_ids=True)[0]
+        M = ops[1].shape[1]
+        lay = select_layout(sp.capacity, M, k)
+        layouts.append(lay)
+        log(f"  {label} bucket {b}: C {sp.capacity}, M {M}, "
+            f"{int((args[0] != cellknn.PAD_ID).sum())} cells: "
+            f"{'staged' if lay > 0 else 'streamed'}, {abs(lay)} shared "
+            f"bytes a block")
+        if not timed and plain_s > WIDE_PLAIN_BUDGET_S and cut_rows is None:
+            cut_rows = WIDE_LATE_ROWS
+            log(f"  {label}: plain-version time so far {plain_s:.1f} s > "
+                f"{WIDE_PLAIN_BUDGET_S} s, the later buckets compare their "
+                f"first {WIDE_LATE_ROWS} cell rows")
+        cmp_ops = ops if cut_rows is None else tuple(a[:cut_rows]
+                                                     for a in ops)
+        count = args[2].to(torch.int64)
+        tot = torch.clamp_max(args[4].sum(-1), sp.cand_cap).to(torch.int64)
+        pairs = int((count * tot).sum())
+        lib_ms = None
+        if timed:
+            d_pos, pos = knn_select(*ops, k)
+            lib_ms = topk_yardstick(ops, k, d_pos, pos)
+            del d_pos, pos
+        for name, (kernel, plain) in kernels.items():
+            d_k, w_k = kernel(*cmp_ops, k)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            d_p, w_p = plain(*cmp_ops, k)
+            z.record()
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            T, C = d_k.shape[:2]
+            same = ((d_k.view(torch.int32) == d_p.view(torch.int32))
+                    & (w_k.view(torch.int32) == w_p.view(torch.int32))
+                    .reshape(T, C, k, -1).all(-1)).all(-1)
+            rows += same.numel()
+            mismatched += int((~same).sum())
+            max_err = max(max_err, float((d_k - d_p).abs().max()),
+                          float((w_k - w_p).abs().max()))
+            if timed:
+                nb = nbytes(*ops, d_k, w_k)
+                b_ms, b_by = bound(pairs, PAIR_FLOPS, 0, nb)
+                per[name].append(dict(
+                    bucket=b, cells=int((args[0] != cellknn.PAD_ID).sum()),
+                    capacity=sp.capacity, M=M, cell_rows=T, pairs=pairs,
+                    bytes=nb, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, layout_bytes=lay,
+                    ms=event_ms(lambda f=kernel: f(*ops, k), 3),
+                    plain_ms=a.elapsed_time(z)))
+            del d_k, w_k, d_p, w_p
+    log(f"{label} vs plain: {rows} query rows compared, {mismatched} "
+        f"mismatched, max abs err {max_err}, plain-version time "
+        f"{plain_s:.1f} s")
+    check(mismatched == 0 and max_err == 0.0,
+          f"{label}: rows, positions and coords kernels bit-identical to "
+          "their plain versions")
+    return per, max_err, layouts
+
+
+def band_inputs(cloud):
+    """Phase 5e's band operands on the 1M torus at k=20: the grid, its
+    probed cells and row blocks, the fitted band and the operands with
+    the cells' counts."""
+    from pct_tpu_torch.experimental import build_row_blocks
+    from pct_tpu_torch.experimental.band_knn import band_operands
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+
+    n = cloud.num_points
+    grid = build_grid(cloud.points, n,
+                      estimate_cell_size(cloud.points, n, K_LIST))
+    cells, cap, mc, cand_cap = cellknn.probe_grid(grid)
+    blocks = build_row_blocks(cells, BAND_BC)
+    band, _ = fitted_band(grid, cells, blocks, cap, BAND_BC)
+    ops, _, counts, band_ok = band_operands(grid, cells, blocks, cap, BAND_BC,
+                                            band)
+    check(bool(band_ok.all()), "every row block's runs fit the band")
+    return ops, counts, cap, band
+
+
+def wide_k_phase(label, cloud, pts, counters, none):
+    """Phase 14: the selects past 128 neighbors on the 1M torus. The
+    kernels at k = 129, 200, 256 (every bucket) and 512, 1024 (the first
+    WIDE_CUT_ROWS cell rows of every bucket) against their plain versions,
+    the band kernel at k = 129 and 200 on phase 5e's operands; then each
+    entry point at k = 200 driven with the counts set to 0 just before it
+    and read just after, and ``knn_cloud_grid`` at k = 1024 once."""
+    import numpy as np
+    import torch
+
+    from pct_tpu_torch import compat
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.curvature.pca import surface_variation
+    from pct_tpu_torch.experimental import knn_band_select
+    from pct_tpu_torch.neighbors import cellknn, knn_cloud_grid
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+    from pct_tpu_torch.pipeline import curvature_pipeline, fast_curvature
+
+    t_phase = time.perf_counter()
+    n = cloud.num_points
+    out = {"walls": {}}
+
+    def knn_layout(k):
+        grid = build_grid(cloud.points, n,
+                          estimate_cell_size(cloud.points, n, k))
+        spec, mc = cellknn.probe_grid_buckets(
+            grid, capacity_cap=cellknn.library_capacity_cap(k))
+        log(f"knn_cloud_grid k={k}: {len(spec)} buckets "
+            f"{[tuple(s) for s in spec]}")
+        return grid, cellknn.compact_cells(grid, mc), spec
+
+    # --- 14a. the kernels against their plain versions ---
+    for k in WIDE_KS:
+        grid, cells, spec = knn_layout(k)
+        cut = WIDE_CUT_ROWS if k > 256 else None
+        per, err, layouts = wide_vs_plain(
+            cellknn, grid, cells, spec, k, f"selects k={k}",
+            timed=(k == K_WIDE), cut_rows=cut)
+        out.setdefault("max_err", {})[k] = err
+        out.setdefault("layouts", {})[k] = layouts
+        if k == K_WIDE:
+            out["buckets"], out["spec"] = per, spec
+        del grid, cells
+    ops, counts, cap, band = band_inputs(cloud)
+    band_err = 0.0
+    for k in (129, K_WIDE):
+        for mode_counts in (None, counts):
+            got, blocks, rows_checked, err, plain_s, _ = band_vs_plain(
+                ops, k, BAND_BC, cap, band, mode_counts,
+                budget_s=WIDE_BAND_PLAIN_S)
+            band_err = max(band_err, err)
+            if k == K_WIDE and mode_counts is not None:
+                out["band_plain"] = (plain_s * 1e3, blocks)
+            del got
+    nb = ops[3].shape[0]
+    pairs = int((ops[5].sum(-1).to(torch.int64) * counts).sum())
+    band_ms = event_ms(lambda: knn_band_select(
+        *ops, k=K_WIDE, bc=BAND_BC, cap=cap, band=band, counts=counts),
+        TIMED_REPS)
+    s_all = nb * BAND_BC * cap
+    nb_bytes = nbytes(*ops, counts) + s_all * (K_WIDE * 8 + 4)
+    b_ms, b_by = bound(pairs, PAIR_FLOPS, 0, nb_bytes)
+    plain_ms, plain_blocks = out["band_plain"]
+    out["band"] = dict(ms=band_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None, max_err=band_err,
+                       plain_blocks=plain_blocks, blocks=nb)
+    log(f"[{label}] band kernel k={K_WIDE} (counts): {band_ms:.3f} ms/call "
+        f"over {nb} blocks, band {band}; plain {plain_ms:.1f} ms over "
+        f"{plain_blocks} of {nb} blocks; bound {b_ms:.4f} ms ({b_by})")
+    del ops, counts
+    torch.cuda.empty_cache()
+
+    # --- 14b. the entry points at k = 200 ---
+    k = K_WIDE
+    nk = len(out["spec"])
+    want = {**none, "select_rows": nk}
+    by_k = {"select_rows": {k: nk}}
+    knn, out["walls"]["knn_cloud_grid"], launches = drive(
+        lambda: knn_cloud_grid(cloud, k)[0], f"knn_cloud_grid k={k}",
+        counters, want, warm=2, want_by_k=by_k)
+    out["launches"] = launches["select_rows"]
+    exact = float(knn.exact[:n].float().mean())
+    log(f"knn_cloud_grid k={k}: exact {exact}, valid "
+        f"{float(knn.valid[:n].float().mean())}")
+    check(bool(knn.exact[:n].all()) and bool(knn.valid[:n].all()),
+          f"knn_cloud_grid k={k}: exact 1.0 and every slot found after the "
+          "repair")
+    check(tuple(knn.indices.shape) == (cloud.capacity, k),
+          f"knn_cloud_grid k={k}: output shape")
+    kth_vs_bruteforce(types.SimpleNamespace(
+        exact=knn.exact, kth_dist=knn.dists[:, -1]), cloud, k)
+
+    grid = build_grid(cloud.points, n, estimate_cell_size(cloud.points, n, k))
+    probe, _ = cellknn.probe_grid_buckets(grid, capacity_cap=max(256, 4 * k))
+    check(not any(cellknn.list_engine_ok(sp.capacity, sp.cand_cap, k)
+                  for sp in probe),
+          f"implicit k={k} takes the staged route (knn_cloud_grid)")
+    del grid
+    imp, out["walls"]["implicit"], _ = drive(
+        lambda: fast_curvature(cloud, k, method="implicit"),
+        f"implicit k={k}", counters, want, warm=2, want_by_k=by_k)
+    out["implicit_err"] = implicit_accuracy(imp, cloud, pts, k)
+    check(bool((imp.kth_dist[:n] == knn.dists[:n, -1]).all()),
+          f"implicit k={k}: kth distance is knn_cloud_grid's")
+    del imp
+
+    pipe, out["walls"]["curvature_pipeline"], _ = drive(
+        lambda: curvature_pipeline(cloud, k), f"curvature_pipeline k={k}",
+        counters, want, warm=2, want_by_k=by_k)
+    check(torch.equal(pipe.neighbor_indices[:n], knn.indices[:n])
+          and torch.equal(pipe.neighbor_dists[:n], knn.dists[:n]),
+          f"curvature_pipeline k={k}: neighbors bit-identical to "
+          "knn_cloud_grid's")
+    K = pipe.curv.K[:n].cpu().numpy()
+    from pct_tpu_torch.shapes import analytic_curvatures
+
+    Ka, _ = analytic_curvatures("torus", pts)
+    out["pipeline_err"] = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
+    log(f"curvature_pipeline k={k}: NaN fraction {float(np.isnan(K).mean())}"
+        f", median scale-relative K error {out['pipeline_err']:.4e}")
+    check(not np.isnan(K).any(), f"curvature_pipeline k={k}: no NaN")
+    del pipe, K
+
+    fc = from_numpy(pts, device=cloud.points.device)   # compat's padding
+    k_est = int(min(max(n * 0.025, 3), k, n - 1))      # its default fraction
+    n_est = len(knn_buckets(fc.points, n, k_est))
+    sv, out["walls"]["estimate_curvature"], _ = drive(
+        lambda: compat.estimate_curvature(pts, max_neighbors=k),
+        f"estimate_curvature max_neighbors={k}", counters,
+        {**none, "select_rows": n_est}, warm=1,
+        want_by_k={"select_rows": {k_est: n_est}})
+    ref = knn_cloud_grid(fc, k_est)[0]
+    want_sv = surface_variation(fc.points, ref.indices[:n]).cpu().numpy()
+    check(sv.shape == (n,) and not np.isnan(sv).any()
+          and bool((sv >= 0).all()), f"estimate_curvature k={k}: >= 0, no "
+          "NaN")
+    check(bool((sv == want_sv).all()), f"estimate_curvature k={k}: surface "
+          "variation of knn_cloud_grid's neighbors, bit for bit")
+    log(f"estimate_curvature(max_neighbors={k}): k={k_est}, {n_est} rows "
+        f"launches a call, median {float(np.median(sv)):.4e}")
+    del sv, ref, fc, knn
+    torch.cuda.empty_cache()
+
+    # --- 14c. knn_cloud_grid at k = 1024, once ---
+    k = WIDE_KS[-1]
+    grid = build_grid(cloud.points, n, estimate_cell_size(cloud.points, n, k))
+    spec1024, _ = cellknn.probe_grid_buckets(
+        grid, capacity_cap=cellknn.library_capacity_cap(k))
+    del grid
+    big, walls, _ = drive(
+        lambda: knn_cloud_grid(cloud, k)[0], f"knn_cloud_grid k={k}",
+        counters, {**none, "select_rows": len(spec1024)}, warm=0,
+        want_by_k={"select_rows": {k: len(spec1024)}})
+    out["walls"]["knn_cloud_grid k=1024"] = walls
+    out_bytes = nbytes(big.indices, big.dists)
+    exact = float(big.exact[:n].float().mean())
+    log(f"[{label}] knn_cloud_grid k={k}, 1M torus: wall {walls[0]:.3f} s "
+        f"(one call), {out_bytes / 1e9:.2f} GB of indices and distances, "
+        f"exact {exact}, valid {float(big.valid[:n].float().mean())}, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    check(bool(big.exact[:n].all()), f"knn_cloud_grid k={k}: exact 1.0")
+    kth_vs_bruteforce(types.SimpleNamespace(
+        exact=big.exact, kth_dist=big.dists[:, -1]), cloud, k)
+    del big
+    torch.cuda.empty_cache()
+    log(f"[{label}] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def mesh_record(rec, flops=None):
     """A kernel's record at one of phase 7's shapes, per call of the
     driven entry point, with its buckets."""
@@ -2525,6 +2844,9 @@ def main():
     # --- 12. the reference-API façade, the command line, the demos ---
     facade = facade_phase(label, cloud, pts, counters, none, len(spec_knn))
 
+    # --- 14. past 128 neighbors ---
+    wide = wide_k_phase(label, cloud, pts, counters, none)
+
     # --- 6. numbers ---
     for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
                         (f"fast_curvature k={K_MOM}", walls100),
@@ -2547,6 +2869,14 @@ def main():
     log_buckets(label, f"select_pos k={K_LIST}", ids_buckets["select_pos"])
     log_buckets(label, f"select_rows k={K_MOM}", rows100_buckets["select_rows"])
     log_buckets(label, f"select_pos k={K_MOM}", rows100_buckets["select_pos"])
+    for name in ("select_rows", "select_pos", "select_coords"):
+        log_buckets(label, f"{name} k={K_WIDE}", wide["buckets"][name])
+    for name, walls in wide["walls"].items():
+        log(f"[{label}] phase 14 {name}: walls {[round(w, 4) for w in walls]}"
+            f" s (first call cold)")
+    log(f"[{label}] phase 14 median errors: implicit k={K_WIDE} K / |H| "
+        f"{wide['implicit_err'][0]:.4e} / {wide['implicit_err'][1]:.4e}, "
+        f"curvature_pipeline k={K_WIDE} K {wide['pipeline_err']:.4e}")
     rows = [
         kernel_row("select_coords", "pct_tpu_torch/csrc/select_coords.cu",
                    "pct_tpu/ops/pallas_select.py:88",
@@ -2589,9 +2919,31 @@ def main():
     for key in ("blocks_checked", "rows_checked", "default_band_ms",
                 "all_slots_ms"):
         rows[4][key] = band_row[key]
+    # k=200 (phase 14): the rows kernel on knn_cloud_grid(k=200)'s path,
+    # the positions and coords kernels on the same operands (no entry
+    # point launches them at k=200), the band kernel on phase 5e's
+    # operands (no entry point at k=200)
+    wide_err = max(wide["max_err"].values())
+    for r, name, launches in ((rows[0], "select_coords", 0),
+                              (rows[2], "select_rows", wide["launches"]),
+                              (rows[3], "select_pos", 0)):
+        r["k200"] = kernel_row(name, r["source"], r["replaces"], launches,
+                               wide_err, wide["buckets"][name])
+        r["k200"]["layout_bytes"] = [b["layout_bytes"]
+                                     for b in wide["buckets"][name]]
+        r["max_abs_err_past_128"] = wide["max_err"]
+    rows[4]["k200"] = {"name": "band_select", "route": "cuda",
+                       "source": rows[4]["source"],
+                       "replaces": rows[4]["replaces"], "launches": 0,
+                       "max_abs_err": wide["band"]["max_err"],
+                       **{key: wide["band"][key] for key in (
+                           "ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "plain_blocks", "blocks")}}
     # calls per driven path: 1 cold + 3 warm, the implicit k=100 path 1 + 2
     for r, calls, k in [(r, 4, "") for r in rows] + [
-            (rows[2]["k100"], 3, " k=100"), (rows[3]["k100"], 3, " k=100")]:
+            (rows[2]["k100"], 3, " k=100"), (rows[3]["k100"], 3, " k=100"),
+            (rows[0]["k200"], 3, " k=200"), (rows[2]["k200"], 3, " k=200"),
+            (rows[3]["k200"], 3, " k=200"), (rows[4]["k200"], 1, " k=200")]:
         lib = ("" if r["library_ms"] is None else
                f", library yardstick (partial) {r['library_ms']:.3f} ms")
         log(f"[{label}] {r['name']}{k} kernel: {r['ms']:.3f} ms/call "

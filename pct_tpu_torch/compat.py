@@ -21,8 +21,9 @@ Intentional divergences (documented, all improvements):
 - ``plant_kdtree`` builds the grid index; queries are exact (certified)
 - energies are O(T) (the reference's are O(T²), ref utils.py:757-760)
 - SLSQP quadric fits are closed-form smallest-eigenvector solves
-- ``estimate_curvature(max_neighbors=)`` above 128 raises ``ValueError``
-  (the selects keep at most 128 neighbors)
+- ``estimate_curvature(max_neighbors=)`` above 1024 raises ``ValueError``
+  (the selects keep at most 1024 neighbors: past that a warp's sort keys
+  would take 16 KB of shared memory, 128 KB for a block of 8 warps)
 - the neighbor study draws its sample from a ``torch.Generator``
 """
 
@@ -314,8 +315,9 @@ def estimate_curvature(points, k_fraction: float = 0.025,
                        max_neighbors: int = 100, *,
                        device: str | torch.device = "cuda"):
     """Surface-variation PCA curvature (ref utils.py:778-829). ``k`` is
-    min(max(n·k_fraction, 3), max_neighbors, n - 1); ``max_neighbors``
-    above the selects' 128 raises ``ValueError``."""
+    min(max(n·k_fraction, 3), max_neighbors, n - 1), ``max_neighbors``
+    on any cloud over 4,000 points at the default fraction;
+    ``max_neighbors`` above the selects' 1024 raises ``ValueError``."""
     from pct_tpu_torch.curvature.pca import surface_variation
 
     if max_neighbors > KMAX:

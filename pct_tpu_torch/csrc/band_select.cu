@@ -53,10 +53,15 @@
 //   exact counts below and at it with the radix select, compacts in (j, p)
 //   order the slots below tau and the first k - below at tau as keys
 //   (d2 bits << 32 | i) with i = j*band + p, the Pallas kernel's
-//   concatenated position (never the tile index), sorts the <= 128 keys
+//   concatenated position (never the tile index), sorts the <= k keys
 //   with the warp's bitonic network and writes them with consecutive lanes
 //   on consecutive j. That is the set and the order of the Pallas kernel's
 //   k rounds of min, first-argmin and mask-out.
+// - k runs to 1024: each warp's scratch (histogram, then the sort's keys)
+//   is knn_warp.cuh's class of k, 1 KB up to k = 128 as before, else 8
+//   bytes a key for the next power of two >= k; the kernel is instantiated
+//   once a class. The band's own limits stay the JAX package's window:
+//   band <= 1024 and bc * cap <= 1024 query slots a block.
 
 #include "knn_warp.cuh"
 
@@ -65,14 +70,18 @@ namespace {
 using namespace knn_warp;
 
 constexpr int NINE = 9;
-constexpr int KMAX = 128;
+constexpr int KMAX = 1024;
 constexpr int BAND_WARPS = 8;
 constexpr int TILE = 2048;   // staged rows a block (the 9 hulls together)
 constexpr int BITS = 512;    // cached d2 bits a warp (candidates a query)
 constexpr int SEG = 20;      // a warp's segment table: off[10], p0[9]
 
-size_t band_smem_bytes(int bc) {
-  return static_cast<size_t>(BAND_WARPS) * (SCRATCH + BITS * 4 + SEG * 4) +
+constexpr int MAX_SLOTS = 1024;   // bc * cap, query slots a block
+
+// A block's dynamic shared bytes at `bc` cells and `scr` scratch bytes a
+// warp.
+size_t band_smem_bytes(int bc, int scr) {
+  return static_cast<size_t>(BAND_WARPS) * (scr + BITS * 4 + SEG * 4) +
          static_cast<size_t>(3 * TILE) * 4 + static_cast<size_t>(bc + 1) * 4;
 }
 
@@ -222,6 +231,7 @@ __device__ void band_query(const Band& band, const BandRule& rule,
   __syncwarp();
 }
 
+template <int SCR>
 __global__ void __launch_bounds__(BAND_WARPS * 32)
 band_select_kernel(const float* __restrict__ px,
                    const float* __restrict__ py,
@@ -244,9 +254,9 @@ band_select_kernel(const float* __restrict__ px,
             lane = threadIdx.x & 31, tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const int Q = bc * cap;
-  unsigned char* scratch = smem + warp * SCRATCH;
-  unsigned* bits = reinterpret_cast<unsigned*>(smem + W * SCRATCH) + warp * BITS;
-  float* tx = reinterpret_cast<float*>(smem + W * (SCRATCH + BITS * 4));
+  unsigned char* scratch = smem + warp * SCR;
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + W * SCR) + warp * BITS;
+  float* tx = reinterpret_cast<float*>(smem + W * (SCR + BITS * 4));
   float* ty = tx + TILE;
   float* tz = ty + TILE;
   int* seg = reinterpret_cast<int*>(tz + TILE) + warp * SEG;
@@ -378,6 +388,26 @@ band_select_kernel(const float* __restrict__ px,
   }
 }
 
+// The kernel of one scratch class; raises its shared-memory limit to the
+// largest block it can take (bc * cap <= MAX_SLOTS) on first use.
+template <int SCR>
+int launch_band(const float* px, const float* py, const float* pz,
+                const int* bs, const int* rs_rel, const int* run_len,
+                const float* qpts, const int* qrow_base, const float* lo,
+                const float* hi, const int* counts, float* dist, int* rows,
+                float* cover, int nb, int npad, int k, int bc, int cap,
+                int band, cudaStream_t s) {
+  static bool raised = false;   // above 48 KB needs the attribute
+  const int e = raise_smem(band_select_kernel<SCR>,
+                           band_smem_bytes(MAX_SLOTS, SCR), raised);
+  if (e) return e;
+  band_select_kernel<SCR><<<nb, BAND_WARPS * 32, band_smem_bytes(bc, SCR),
+                            s>>>(px, py, pz, bs, rs_rel, run_len, qpts,
+                                 qrow_base, lo, hi, counts, dist, rows, cover,
+                                 npad, k, bc, cap, band);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches on `stream` and returns a CUDA error code (0 = launched).
@@ -385,7 +415,7 @@ band_select_kernel(const float* __restrict__ px,
 // qrow_base (nb,bc) int32; qpts (nb,bc*cap,3), lo/hi (nb,bc,3) float32;
 // counts (nb,bc) int32 or null (every slot computed); outputs dist (S,k)
 // float32, rows (S,k) int32, cover (S,) float32 with S = nb*bc*cap; all
-// contiguous. Require 1 <= bc*cap <= 1024, 1 <= k <= 128 and
+// contiguous. Require 1 <= bc*cap <= 1024, 1 <= k <= 1024 and
 // 1 <= band <= 1024 (checked by the wrapper).
 extern "C" int pct_band_select(const float* px, const float* py,
                                const float* pz, const int* bs,
@@ -396,19 +426,25 @@ extern "C" int pct_band_select(const float* px, const float* py,
                                float* cover, int nb, int npad, int k, int bc,
                                int cap, int band, void* stream) {
   if (nb <= 0) return 0;
-  if (k < 1 || k > KMAX || bc < 1 || cap < 1 || bc * cap > 1024)
+  if (k < 1 || k > KMAX || bc < 1 || cap < 1 || bc * cap > MAX_SLOTS)
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool raised = false;   // above 48 KB needs the attribute
-  if (!raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        band_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(band_smem_bytes(1024)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    raised = true;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (scratch_bytes(k)) {
+    case SCRATCH:
+      return launch_band<SCRATCH>(px, py, pz, bs, rs_rel, run_len, qpts,
+                                  qrow_base, lo, hi, counts, dist, rows,
+                                  cover, nb, npad, k, bc, cap, band, s);
+    case 2048:
+      return launch_band<2048>(px, py, pz, bs, rs_rel, run_len, qpts,
+                               qrow_base, lo, hi, counts, dist, rows, cover,
+                               nb, npad, k, bc, cap, band, s);
+    case 4096:
+      return launch_band<4096>(px, py, pz, bs, rs_rel, run_len, qpts,
+                               qrow_base, lo, hi, counts, dist, rows, cover,
+                               nb, npad, k, bc, cap, band, s);
+    default:
+      return launch_band<8192>(px, py, pz, bs, rs_rel, run_len, qpts,
+                               qrow_base, lo, hi, counts, dist, rows, cover,
+                               nb, npad, k, bc, cap, band, s);
   }
-  band_select_kernel<<<nb, BAND_WARPS * 32, band_smem_bytes(bc),
-                       static_cast<cudaStream_t>(stream)>>>(
-      px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo, hi, counts, dist,
-      rows, cover, npad, k, bc, cap, band);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -4,14 +4,19 @@
 // (H100).
 //
 // Layout. One thread block per cell row t, W = min(MAX_WARPS, C) warps;
-// warp w serves the row's query slots c = w, w + W, ... in turn. Where
-// the row fits the shared-memory budget (CACHE_BUDGET, M up to ~1,800
-// slots at 8 warps) the block stages its candidates once (x, y, z, id,
-// valid: 20 B a slot, coalesced) and each warp computes every d2 of its
-// query exactly once into a per-warp slice of M uint32 bits; each later
-// pass reads the bits back. Past the budget the same code runs on a
-// streamed source that recomputes d2 from device memory in every pass:
-// correct and slower, for rows no real bucket has.
+// warp w serves the row's query slots c = w, w + W, ... in turn. Each warp
+// owns a scratch area whose size is a class chosen by k (scratch_bytes):
+// SCRATCH = 1 KB for k <= 128, else 8 * P bytes, P the next power of two
+// >= k (2 / 4 / 8 KB up to k = 256 / 512 / 1024): the radix histogram
+// (256 words) and the sort's P keys of 8 bytes share it. Where the row
+// fits the class's shared-memory budget (CACHE_BUDGET for the 1 KB class,
+// M up to ~1,800 slots at 8 warps; WIDE_BUDGET, the card's most a block,
+// for the others: M up to ~4,100 at 8 warps and k <= 256) the block stages
+// its candidates once (x, y, z, id, valid: 20 B a slot, coalesced) and
+// each warp computes every d2 of its query exactly once into a per-warp
+// slice of M uint32 bits; each later pass reads the bits back. Past the
+// budget the same code runs on a streamed source that recomputes d2 from
+// device memory in every pass: correct and slower.
 //
 // d2 is the difference form ((dx*dx + dy*dy) + dz*dz) with the _rn
 // intrinsics, so nvcc cannot contract it into FMAs; non-negative float32
@@ -30,10 +35,11 @@
 // then the first k - below slots equal to tau, compacted in candidate
 // order (ballot + popc prefix sums) as keys (d2 bits << 32 | position),
 // which is exactly the set of the k smallest (d2, position) pairs; the
-// <= 128 keys are unique and a bitonic network in the warp's scratch
-// sorts them into the order the Pallas kernels' rounds of min and
-// first-argmin emit. select_kernel runs that over one cell row per block
-// with an emitter for the outputs (ids, positions or coordinates).
+// <= k keys are unique (their positions are) and a bitonic network over
+// P = the next power of two in the warp's scratch sorts them into the
+// order the Pallas kernels' rounds of min and first-argmin emit.
+// select_kernel runs that over one cell row per block with an emitter for
+// the outputs (ids, positions or coordinates).
 
 #pragma once
 
@@ -46,8 +52,18 @@ namespace knn_warp {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float SENT = 3.0e38f;          // d2 of an unusable slot
 constexpr int MAX_WARPS = 8;
-constexpr int SCRATCH = 1024;            // bytes of per-warp scratch
-constexpr size_t CACHE_BUDGET = 100 * 1024;  // dynamic shared bytes
+constexpr int SCRATCH = 1024;            // per-warp scratch bytes, k <= 128
+constexpr size_t CACHE_BUDGET = 100 * 1024;  // dynamic shared bytes, 1 KB
+constexpr size_t WIDE_BUDGET = 227 * 1024;   // the larger classes: sm_90's
+                                             // most a block
+
+// Bytes of per-warp scratch for a select of k winners (1 <= k <= 1024):
+// SCRATCH up to k = 128, else 8 bytes a key for the next power of two >= k.
+__host__ __device__ constexpr int scratch_bytes(int k) {
+  int P = 256;
+  while (P < k) P <<= 1;
+  return k <= 128 ? SCRATCH : 8 * P;
+}
 
 __device__ __forceinline__ unsigned sent_bits() { return __float_as_uint(SENT); }
 
@@ -104,22 +120,29 @@ struct CachedBits {
   __device__ unsigned operator()(int m) const { return b[m]; }
 };
 
-// Per-block shared memory: W scratch areas, then (cached) W bit slices
-// of mp words and the staged row.
+// Per-block shared memory: W scratch areas of `scr` bytes, then (cached)
+// W bit slices of mp words and the staged row.
 __host__ __device__ inline int pitch(int M) { return (M + 3) & ~3; }
 
-inline size_t smem_bytes(int W, int M, bool cached) {
+inline size_t smem_bytes(int W, int M, bool cached, int scr = SCRATCH) {
   const size_t mp = static_cast<size_t>(pitch(M));
-  return static_cast<size_t>(W) * SCRATCH +
+  return static_cast<size_t>(W) * scr +
          (cached ? static_cast<size_t>(W) * mp * 4 + mp * 20 : 0);
 }
 
-inline bool use_cache(int W, int M) {
-  return M <= (1 << 20) && smem_bytes(W, M, true) <= CACHE_BUDGET;
+inline bool use_cache(int W, int M, int scr = SCRATCH,
+                      size_t budget = CACHE_BUDGET) {
+  return M <= (1 << 20) && smem_bytes(W, M, true, scr) <= budget;
+}
+
+// The shared-memory budget of a scratch class: CACHE_BUDGET for the 1 KB
+// class (k <= 128), the card's most a block for the others.
+constexpr size_t class_budget(int scr) {
+  return scr == SCRATCH ? CACHE_BUDGET : WIDE_BUDGET;
 }
 
 struct Block {
-  unsigned char* scratch;   // this warp's SCRATCH bytes
+  unsigned char* scratch;   // this warp's scratch bytes
   unsigned* bits;           // this warp's bit slice (cached)
   StagedRow row;            // the staged row (cached)
 };
@@ -128,14 +151,14 @@ struct Block {
 // (all threads, coalesced) and synchronize the block.
 __device__ inline Block carve(unsigned char* smem, bool cached, int W,
                               int warp, const float* pt, const int* ct,
-                              const int* vt, int M) {
+                              const int* vt, int M, int scr = SCRATCH) {
   Block b;
-  b.scratch = smem + warp * SCRATCH;
+  b.scratch = smem + warp * scr;
   b.bits = nullptr;
   b.row = StagedRow{nullptr, nullptr, nullptr, 0};
   if (!cached) return b;
   const int mp = pitch(M);
-  unsigned* bits = reinterpret_cast<unsigned*>(smem + W * SCRATCH);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + W * scr);
   float* xyz = reinterpret_cast<float*>(bits + W * mp);
   int* cand = reinterpret_cast<int*>(xyz + 3 * mp);
   int* valid = cand + mp;
@@ -319,8 +342,9 @@ __device__ __forceinline__ int key_pos(unsigned long long key) {
 
 // One block per cell row t, warps over its query slots: each query's n
 // sorted winner keys go to out.write(row, keys, n, query index, k, lane),
-// which writes its k outputs (missing ones past n).
-template <class Out, bool CACHED>
+// which writes its k outputs (missing ones past n). SCR is the scratch
+// class of k (scratch_bytes).
+template <class Out, bool CACHED, int SCR>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 select_kernel(const float* __restrict__ q,      // (T,C,3)
               const float* __restrict__ p,      // (T,M,3)
@@ -335,7 +359,7 @@ select_kernel(const float* __restrict__ q,      // (T,C,3)
   const float* pt = p + t * M * 3;
   const int* ct = cand + t * M;
   const int* vt = valid + t * M;
-  const Block b = carve(smem, CACHED, W, warp, pt, ct, vt, M);
+  const Block b = carve(smem, CACHED, W, warp, pt, ct, vt, M, SCR);
   const unsigned long long* keys =
       reinterpret_cast<const unsigned long long*>(b.scratch);
   for (int c = warp; c < C; c += W) {
@@ -357,31 +381,78 @@ select_kernel(const float* __restrict__ q,      // (T,C,3)
   }
 }
 
-// Launch select_kernel over T cell rows on `stream`; returns
-// cudaGetLastError() (0 = launched).
+// Shared bytes of a select_kernel launch at (C, M, k): positive where the
+// row is staged (cached), negative (minus the scratch bytes) where it is
+// streamed.
+inline long long select_layout(int C, int M, int k) {
+  const int W = min(MAX_WARPS, C), scr = scratch_bytes(k);
+  return use_cache(W, M, scr, class_budget(scr))
+             ? static_cast<long long>(smem_bytes(W, M, true, scr))
+             : -static_cast<long long>(smem_bytes(W, M, false, scr));
+}
+
+// Raise a kernel's dynamic shared-memory limit to `most` bytes, once (a
+// launch above 48 KB needs it); returns the CUDA error (0 = set).
+template <class Kernel>
+int raise_smem(Kernel kernel, size_t most, bool& raised) {
+  if (raised || most <= 48 * 1024) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(most));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  raised = true;
+  return 0;
+}
+
+// select_kernel of one scratch class: the row staged where it fits the
+// class's budget, else streamed.
+template <class Out, int SCR>
+int launch_class(const float* q, const float* p, const int* cand,
+                 const int* qrow, const int* valid, Out out, int T, int C,
+                 int M, int k, cudaStream_t s) {
+  const int W = min(MAX_WARPS, C);
+  if (use_cache(W, M, SCR, class_budget(SCR))) {
+    static bool raised = false;   // above 48 KB needs the attribute
+    const int e = raise_smem(select_kernel<Out, true, SCR>,
+                             class_budget(SCR), raised);
+    if (e) return e;
+    select_kernel<Out, true, SCR><<<T, W * 32, smem_bytes(W, M, true, SCR),
+                                    s>>>(q, p, cand, qrow, valid, out, C, M,
+                                         k);
+  } else {
+    static bool raised = false;
+    const int e = raise_smem(select_kernel<Out, false, SCR>,
+                             smem_bytes(MAX_WARPS, M, false, SCR), raised);
+    if (e) return e;
+    select_kernel<Out, false, SCR><<<T, W * 32,
+                                     smem_bytes(W, M, false, SCR), s>>>(
+        q, p, cand, qrow, valid, out, C, M, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch select_kernel over T cell rows on `stream`, in the scratch class
+// of k (1 <= k <= 1024); returns cudaGetLastError() (0 = launched).
 template <class Out>
 int launch_select(const float* q, const float* p, const int* cand,
                   const int* qrow, const int* valid, Out out, int T, int C,
                   int M, int k, void* stream) {
   if (T <= 0) return 0;
-  const int W = min(MAX_WARPS, C);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_cache(W, M)) {
-    static bool raised = false;   // above 48 KB needs the attribute
-    if (!raised) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          select_kernel<Out, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(CACHE_BUDGET));
-      if (e != cudaSuccess) return static_cast<int>(e);
-      raised = true;
-    }
-    select_kernel<Out, true><<<T, W * 32, smem_bytes(W, M, true), s>>>(
-        q, p, cand, qrow, valid, out, C, M, k);
-  } else {
-    select_kernel<Out, false><<<T, W * 32, smem_bytes(W, M, false), s>>>(
-        q, p, cand, qrow, valid, out, C, M, k);
+  switch (scratch_bytes(k)) {
+    case SCRATCH:
+      return launch_class<Out, SCRATCH>(q, p, cand, qrow, valid, out, T, C,
+                                        M, k, s);
+    case 2048:
+      return launch_class<Out, 2048>(q, p, cand, qrow, valid, out, T, C, M,
+                                     k, s);
+    case 4096:
+      return launch_class<Out, 4096>(q, p, cand, qrow, valid, out, T, C, M,
+                                     k, s);
+    default:
+      return launch_class<Out, 8192>(q, p, cand, qrow, valid, out, T, C, M,
+                                     k, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace knn_warp

@@ -26,12 +26,15 @@
 //
 // The design is the rows kernel's (knn_warp.cuh's select_kernel): one block
 // per cell row stages the row (xyz, id, valid) in shared memory, or streams
-// it from device memory past CACHE_BUDGET; one warp per query slot computes
-// each d2 once, finds the kth by the radix select, compacts and sorts the
-// winner keys. Only the emitter differs: each winner's xyz comes from the
-// staged row in shared memory (not read back from device memory), and the
-// lanes write the slot's contiguous (k, 3) coordinates and its k distances
-// with consecutive lanes on consecutive floats.
+// it from device memory past its scratch class's budget; one warp per
+// query slot computes each d2 once, finds the kth by the radix select,
+// compacts and sorts the winner keys (k <= 1024; the scratch class of k as
+// in select_rows.cu). Only the emitter differs: each winner's xyz comes
+// from the staged row in shared memory (not read back from device
+// memory), and the lanes write the slot's contiguous (k, 3) coordinates
+// and its k distances with consecutive lanes on consecutive floats. Every
+// output offset is size_t: 1M query slots at k = 1024 write 12.9 GB of
+// coordinates.
 
 #include "knn_warp.cuh"
 
@@ -39,7 +42,7 @@ namespace {
 
 using namespace knn_warp;
 
-constexpr int KMAX = 128;
+constexpr int KMAX = 1024;
 
 // dist[j] = sqrt(d2) and nbr[j, 0:3] = the winner's xyz from `row`; missing
 // winners read (3e38, the xyz of slot 0).
@@ -67,8 +70,8 @@ struct CoordsOut {
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // Shapes: q (T,C,3), p (T,M,3) float32; cand (T,M), qrow (T,C), valid (T,M)
 // int32; outputs dist (T,C,k), nbr (T,C,k,3) float32; all contiguous.
-// Requires 1 <= C <= 1024, M >= 1 and 1 <= k <= 128 (checked by the
-// wrapper).
+// Requires C >= 1 (the wrapper keeps C <= 4096), M >= 1 and 1 <= k <= 1024
+// (checked by the wrapper).
 extern "C" int pct_select_coords(const float* q, const float* p, const int* cand,
                                  const int* qrow, const int* valid, float* dist,
                                  float* nbr, int T, int C, int M, int k,

@@ -33,10 +33,14 @@
 // and the count below it by a four-pass radix select, compacts in slot order
 // every slot below tau and then the first k - below slots equal to tau
 // (ballot + popc prefix sums: exactly the k smallest (d2, m) pairs), sorts
-// those <= 128 keys (d2 bits << 32 | m) with a bitonic network in the warp's
+// those <= k keys (d2 bits << 32 | m) with a bitonic network in the warp's
 // scratch, and writes them with consecutive lanes on consecutive j. That is
 // the set and the order the Pallas kernels' rounds of min and first-argmin
-// emit.
+// emit. k runs to 1024: the warp's scratch is a class chosen by k (1 KB up
+// to k = 128, as before; 2 / 4 / 8 KB up to 256 / 512 / 1024, the sort's
+// keys), and so is the shared-memory budget under which the row is staged.
+// Every output offset is size_t (qi * k): 1M query slots at k = 1024 write
+// 4 GB a tensor.
 
 #include "knn_warp.cuh"
 
@@ -44,7 +48,7 @@ namespace {
 
 using namespace knn_warp;
 
-constexpr int KMAX = 128;
+constexpr int KMAX = 1024;
 
 // dist[j] = sqrt(d2) and the winner's id cand[m] (ROWS) or slot m, with
 // consecutive lanes on consecutive j; missing winners read (3e38, m = 0).
@@ -74,8 +78,9 @@ struct IdsOut {
 // Both launch on `stream` and return cudaGetLastError() (0 = launched).
 // Shapes: q (T,C,3), p (T,M,3) float32; cand (T,M), qrow (T,C), valid (T,M)
 // int32; outputs dist (T,C,k) float32 and rows / pos (T,C,k) int32; all
-// contiguous. Require 1 <= C <= 1024, M >= 1 and 1 <= k <= 128 (checked by
-// the wrapper).
+// contiguous. Require C >= 1 (the wrapper keeps C <= 4096: the warps take a
+// row's query slots in turn, so nothing here bounds C), M >= 1 and
+// 1 <= k <= 1024 (checked by the wrapper).
 extern "C" int pct_select_rows(const float* q, const float* p, const int* cand,
                                const int* qrow, const int* valid, float* dist,
                                int* rows, int T, int C, int M, int k,
@@ -92,4 +97,11 @@ extern "C" int pct_select_pos(const float* q, const float* p, const int* cand,
   if (k < 1 || k > KMAX) return static_cast<int>(cudaErrorInvalidValue);
   return launch_select(q, p, cand, qrow, valid, IdsOut<false>{dist, pos}, T, C,
                        M, k, stream);
+}
+
+// The layout select_kernel takes at (C, M, k): the dynamic shared bytes a
+// block, positive where the row is staged, negative where it is streamed.
+extern "C" long long pct_select_layout(int C, int M, int k) {
+  if (C < 1 || M < 1 || k < 1 || k > KMAX) return 0;
+  return select_layout(C, M, k);
 }

@@ -767,17 +767,33 @@ def knn_all_points(grid: GridIndex, k: int, capacity: int | None = None,
     return knn_cellwise_bucketed(grid, compact_cells(grid, mc), k, spec)
 
 
+def library_capacity_cap(k: int) -> int:
+    """The capacity cap of library kNN's probes at k.
+
+    The JAX package caps a bucket's capacity at 256 query slots at every
+    k; the port keeps that up to k = 128, so that there both packages
+    certify the same rows. Past 128 it takes ``fast_curvature``'s
+    max(256, 4k) = 4k: on the 1M torus at k = 1024 a 256 cap leaves 53%
+    of the rows outside their bucket, which sends the whole cloud to
+    brute force. After ``knn_cloud_grid``'s repair both give the exact
+    kNN."""
+    return 256 if k <= 128 else 4 * k
+
+
 def knn_all_points_auto(grid: GridIndex, k: int) -> NeighborResult:
     """Self-kNN in one bucket with host-probed capacity and candidate
-    budget (``probe_grid``)."""
-    cells, capacity, _, cand_cap = probe_grid(grid)
+    budget (``probe_grid``, capped at ``library_capacity_cap(k)``)."""
+    cells, capacity, _, cand_cap = probe_grid(
+        grid, capacity_cap=library_capacity_cap(k))
     return knn_cellwise(grid, cells, k, capacity=capacity, cand_cap=cand_cap)
 
 
 def knn_all_points_auto_bucketed(grid: GridIndex, k: int) -> NeighborResult:
     """Self-kNN with host-probed occupancy buckets
-    (``probe_grid_buckets``): select padding tracks each cell's size."""
-    spec, mc = probe_grid_buckets(grid)
+    (``probe_grid_buckets``, capped at ``library_capacity_cap(k)``):
+    select padding tracks each cell's size."""
+    spec, mc = probe_grid_buckets(grid,
+                                  capacity_cap=library_capacity_cap(k))
     return knn_cellwise_bucketed(grid, compact_cells(grid, mc), k, spec)
 
 

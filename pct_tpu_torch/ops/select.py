@@ -16,16 +16,21 @@ The three wrappers differ only in what they emit beside the distances:
 
 Missing slots carry distance sqrt(3e38) and position 0 (so the
 coordinates of candidate slot 0, and the id ``cand[t, 0]``); callers
-test ``found = dists < 1e18``. The selects keep at most ``KMAX`` = 128
-neighbors; the JAX package's list engine runs only where k·cand_cap ≤
-48,000, so k > 128 reaches a select only on a degenerate cloud whose
-27-cell windows hold fewer than ~3·k points (n < k, for example).
+test ``found = dists < 1e18``. The selects keep at most ``KMAX`` = 1024
+neighbors (the Pallas kernels take any k); above it every wrapper
+raises ``ValueError``. 1024 is where the kernels' per-warp scratch
+stops: 8 KB of sort keys a warp, 64 KB for a block of 8 warps, before
+the row is staged. Library kNN, the staged pipeline, the implicit
+fallback and ``compat.estimate_curvature`` reach the selects at any k
+up to it.
 
 On CUDA tensors the hand-written kernels run (``csrc/select_coords.cu``
 and ``csrc/select_rows.cu``, one design in ``csrc/knn_warp.cuh``: one
 block per cell row stages the row, one warp per query slot computes d²
 once, radix-selects the kth and sorts the winners, and only the
-emitted outputs differ; built with nvcc at first use); on CPU tensors
+emitted outputs differ; built with nvcc at first use; the warp's
+scratch and the block's shared-memory budget are classes chosen by k,
+``select_layout`` tells which layout a shape takes); on CPU tensors
 the plain PyTorch versions below, which do the same IEEE float32
 operations in the same order, so the two agree bit for bit on the card.
 """
@@ -40,10 +45,11 @@ import torch
 from pct_tpu_torch.ops import build
 
 MISSING_D2 = 3.0e38
-KMAX = 128          # the winner keys a warp sorts
-MAX_QUERIES = 1024  # query slots of a cell row (one block a row, its warps
-                    # take the slots in turn)
-_PLAIN_PAIRS = 1 << 24   # (rows × C × M) elements per plain-version chunk
+KMAX = 1024         # the winner keys a warp sorts (8 KB of its scratch)
+MAX_QUERIES = 4 * KMAX  # query slots of a cell row: the probes cap a
+                        # bucket's capacity at max(256, 4k); one block a
+                        # row, its warps take the slots in turn
+_PLAIN_PAIRS = 1 << 24  # (rows × C × max(M, k)) elements a plain chunk
 
 
 def _plain_block(qpts, cpts, cand, qrow, valid, k: int):
@@ -80,7 +86,7 @@ def _plain(qpts, cpts, cand, qrow, valid, k: int, emit):
     live = valid.any(dim=1).nonzero().flatten()
     dists = torch.sqrt(qpts.new_full((T, C, k), MISSING_D2))
     pos = torch.zeros((T, C, k), dtype=torch.int64, device=qpts.device)
-    step = max(1, _PLAIN_PAIRS // max(C * cpts.shape[1], 1))
+    step = max(1, _PLAIN_PAIRS // max(C * max(cpts.shape[1], k), 1))
     for s in range(0, live.numel(), step):
         rows = live[s:s + step]
         dists[rows], pos[rows] = _plain_block(
@@ -206,7 +212,7 @@ def knn_select_coords(qpts: torch.Tensor, cpts: torch.Tensor,
 
     ``cand`` (T,M) int32 candidate ids, ``qrow`` (T,C) int32 query ids
     (a candidate equal to the query's id is itself and is skipped),
-    ``valid`` (T,M) int32 nonzero where the slot is real; 1 <= k <= 128.
+    ``valid`` (T,M) int32 nonzero where the slot is real; 1 <= k <= 1024.
     CUDA tensors launch the kernel (``knn_select_coords.launches`` counts
     launches); CPU tensors run ``select_coords_plain``.
     """
@@ -238,6 +244,20 @@ def knn_select(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
     return _select(knn_select, "select_rows", "pct_select_pos",
                    select_pos_plain, torch.int32, (),
                    qpts, cpts, cand, qrow, valid, k)
+
+
+def select_layout(C: int, M: int, k: int) -> int:
+    """The layout the three select kernels take at C query slots, M
+    candidate slots and k winners a query (card only: builds
+    ``csrc/select_rows.cu``): the dynamic shared bytes a block, positive
+    where the row is staged in shared memory, negative where each pass
+    re-reads it from device memory. k <= 128 keeps the 1 KB scratch class
+    and its 100 KB budget; larger k takes 2, 4 or 8 KB a warp under the
+    card's 227 KB a block."""
+    fn = build.load("select_rows").pct_select_layout
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return int(fn(C, M, k))
 
 
 for _wrapper in (knn_select_coords, knn_select_rows, knn_select):

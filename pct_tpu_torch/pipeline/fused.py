@@ -155,7 +155,7 @@ def fused_curvature(points: torch.Tensor, num_points: int,
     ``capacity`` and ``cand_cap`` are ignored with a ``bucket_spec``.
     ``method`` is "explicit" or
     "implicit" (``implicit_mode`` "exact" or "reference");
-    ``engine`` is "list" (k <= 128) or "moments" (explicit only).
+    ``engine`` is "list" (k <= 1024) or "moments" (explicit only).
     ``split=(cap, factor)`` virtual-splits cells to <= cap
     queries a row (``split_cells``); the spec must then come from
     ``probe_grid_buckets(split_to=cap)``, which returns the factor. No

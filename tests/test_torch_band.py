@@ -254,8 +254,8 @@ def test_band_limits_raise(case):
         return
     ops = band_operands(gt, cells, blocks, cap, BC, default_band(BC, cap))[0]
     if case == "k":
-        with pytest.raises(ValueError, match="at most 128"):
-            knn_band_select(*ops, k=129, bc=BC, cap=cap,
+        with pytest.raises(ValueError, match="at most 1024"):
+            knn_band_select(*ops, k=1025, bc=BC, cap=cap,
                             band=default_band(BC, cap))
     elif case == "counts":
         nb = ops[3].shape[0]

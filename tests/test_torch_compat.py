@@ -213,6 +213,43 @@ def test_average_distance_matches_jax(torus_1500):
     np.testing.assert_allclose(rt, rj, rtol=1e-4)
 
 
+def _estimate_parity(pts, k_fraction, max_neighbors, repair_bound=False):
+    """Both façades' ``estimate_curvature`` within 1e-4 of its largest
+    value on the rows whose neighbor id sets agree, those sets equal
+    wherever the kth and (k+1)th float64 distances are apart by more
+    than the rounding bound: the grid's cell-local one, or with
+    ``repair_bound`` the larger of it and the brute-force repair's
+    expanded form 8·2⁻²⁴·(|q|²+|p|²) (tests/test_torch_knn.py)."""
+    from pct_tpu.core import from_numpy as jax_from_numpy
+    from pct_tpu.neighbors import knn_cloud_grid as jax_knn_cloud_grid
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.neighbors import knn_cloud_grid
+
+    n = len(pts)
+    k = int(min(max(n * k_fraction, 3), max_neighbors, n - 1))
+    sj, st = _both("estimate_curvature", pts, k_fraction=k_fraction,
+                   max_neighbors=max_neighbors)
+    assert st.shape == (n,) and (st >= 0).all()
+    ij = np.asarray(jax_knn_cloud_grid(jax_from_numpy(pts), k)[0].indices)[:n]
+    rt, grid = knn_cloud_grid(from_numpy(pts, device="cpu"), k, device="cpu")
+    it = rt.indices[:n].numpy()
+    rows = (np.sort(ij, 1) == np.sort(it, 1)).all(1)
+    P = pts.astype(np.float64)
+    d_true, i_true = cKDTree(P).query(P, k + 2)
+    d_true, i_true = d_true[:, 1:], i_true[:, 1:]
+    bound = 32 * 2.0**-24 * 15 * float(grid.cell_size) ** 2
+    if repair_bound:
+        sq = np.sum(P * P, axis=1)
+        bound = np.maximum(bound, 8 * 2.0**-24 * (sq + sq[i_true[:, k - 1]]))
+    untied = (d_true[:, k] ** 2 - d_true[:, k - 1] ** 2
+              > 1e-4 * d_true[:, k] ** 2 + 2 * bound)
+    assert untied.any() and rows[untied].all()
+    assert rows.mean() >= 0.5
+    np.testing.assert_allclose(st[rows], sj[rows], rtol=0,
+                               atol=1e-4 * np.abs(sj).max())
+    return k
+
+
 @pytest.mark.parametrize("k_fraction", [0.01, 0.025])
 def test_estimate_curvature_matches_jax(torus_1500, k_fraction):
     """Surface variation at k = min(max(n·k_fraction, 3), 100, n - 1),
@@ -221,35 +258,17 @@ def test_estimate_curvature_matches_jax(torus_1500, k_fraction):
     rows (75-79% of the rows agree here), so the id sets are held equal
     where the kth and (k+1)th float64 distances are apart, as in
     ``test_plant_kdtree_matches_jax``."""
-    from pct_tpu.core import from_numpy as jax_from_numpy
-    from pct_tpu.neighbors import knn_cloud_grid as jax_knn_cloud_grid
-    from pct_tpu_torch.core import from_numpy
-    from pct_tpu_torch.neighbors import knn_cloud_grid
-
-    pts = torus_1500
-    n = len(pts)
-    k = int(min(max(n * k_fraction, 3), 100, n - 1))
-    sj, st = _both("estimate_curvature", pts, k_fraction=k_fraction)
-    assert st.shape == (n,) and (st >= 0).all()
-    ij = np.asarray(jax_knn_cloud_grid(jax_from_numpy(pts), k)[0].indices)[:n]
-    rt, grid = knn_cloud_grid(from_numpy(pts, device="cpu"), k, device="cpu")
-    it = rt.indices[:n].numpy()
-    rows = (np.sort(ij, 1) == np.sort(it, 1)).all(1)
-    P = pts.astype(np.float64)
-    d_true, _ = cKDTree(P).query(P, k + 2)
-    d_true = d_true[:, 1:]
-    cell_bound = 32 * 2.0**-24 * 15 * float(grid.cell_size) ** 2
-    untied = (d_true[:, k] ** 2 - d_true[:, k - 1] ** 2
-              > 1e-4 * d_true[:, k] ** 2 + 2 * cell_bound)
-    assert untied.any() and rows[untied].all()
-    assert rows.mean() >= 0.5
-    np.testing.assert_allclose(st[rows], sj[rows], rtol=0,
-                               atol=1e-4 * np.abs(sj).max())
+    _estimate_parity(torus_1500, k_fraction, 100)
 
 
 def test_estimate_curvature_refuses_past_the_selects(torus_1500):
-    with pytest.raises(ValueError, match="128"):
-        compat.estimate_curvature(torus_1500, max_neighbors=200,
+    """Past 128 neighbors the selects run: ``max_neighbors=200`` at
+    k_fraction 0.2 (k = 200) matches the JAX package by the rule above,
+    with the repair's bound (most rows of a 1500-point cloud at k = 200
+    go to brute force); 1025, past the selects' 1024, raises."""
+    assert _estimate_parity(torus_1500, 0.2, 200, repair_bound=True) == 200
+    with pytest.raises(ValueError, match="1024"):
+        compat.estimate_curvature(torus_1500, max_neighbors=1025,
                                   device="cpu")
 
 

@@ -63,7 +63,11 @@ def _tile(seed, T, C, M, dup=False, sparse=False):
     (8, 256, 520, 20, False, False),    # the probe's largest capacity
     (16, 8, 8, 20, False, False),       # fewer candidate slots than k
     (8, 64, 700, 100, False, False),    # the 128-entry list
-    (4, 37, 300, 128, False, False),    # the largest k
+    (4, 37, 300, 128, False, False),    # the largest k of the 1 KB class
+    (4, 37, 300, 129, False, False),    # the 2 KB scratch class
+    (3, 64, 1064, 256, False, False),   # the 2 KB class's largest k
+    (2, 16, 1100, 1024, False, False),  # the 8 KB class, the largest k
+    (4, 24, 700, 1024, False, True),    # fewer than k valid, k = 1024
 ])
 def test_select_coords_kernel_bit_identical(cuda, T, C, M, k, dup, sparse):
     ops = [torch.from_numpy(a).to(cuda)
@@ -118,6 +122,11 @@ def _ids_tile(seed, T, C, M, dup=False, empty=False, lattice=False,
     (8, 16, 40, 64, False, False),      # fewer candidate slots than k
     (12, 32, 200, 20, True, False),     # exact distance ties
     (8, 24, 400, 100, False, True),     # empty rows
+    (4, 37, 300, 129, False, False),    # the 2 KB scratch class
+    (3, 64, 1064, 256, False, False),   # the 2 KB class's largest k
+    (2, 40, 2136, 200, True, False),    # k = 200 at the 1M torus's
+                                        # largest M, exact ties
+    (2, 16, 1100, 1024, False, False),  # the 8 KB class, the largest k
 ])
 def test_select_ids_kernels_bit_identical(cuda, want, T, C, M, k, dup,
                                           empty):
@@ -154,6 +163,13 @@ IDS_CASES = {
     "under_k_k100": (8, 32, 900, 100, {"p_valid": 0.05}),
     "all_invalid_k100": (6, 24, 700, 100, {"empty": True}),
     "C1_k100": (16, 1, 1064, 100, {}),
+    # past 128 neighbors: the streamed source in the 4 KB and 8 KB
+    # classes, C = 4096 (the probes' cap at k = 1024), under-k and ties
+    "streamed_M5000_k512": (2, 16, 5000, 512, {}),
+    "streamed_M6000_k1024_lattice": (1, 24, 6000, 1024, {"lattice": True}),
+    "C4096_k200": (1, 4096, 300, 200, {}),
+    "under_k_k256": (4, 32, 900, 256, {"p_valid": 0.05}),
+    "lattice_k200": (4, 48, 2136, 200, {"lattice": True}),
 }
 
 
@@ -442,6 +458,11 @@ BAND_CASES = {
     "under_k_k128": (6, 8, 8, 256, 128, {"sparse": True}),
     "hull_past_tile_k20": (6, 8, 16, 1024, 20, {"runs": "wide"}),
     "query_past_bits_k20": (4, 8, 8, 200, 20, {"runs": "long"}),
+    # past 128 neighbors: the 2, 4 and 8 KB scratch classes
+    "k129": (4, 8, 16, 1024, 129, {}),
+    "k256_q_odd": (4, 2, 37, 256, 256, {}),
+    "k1024": (2, 8, 16, 1024, 1024, {}),
+    "under_k_k200": (4, 8, 8, 256, 200, {"sparse": True}),
 }
 
 
@@ -480,6 +501,28 @@ def test_band_select_kernel_bit_identical(cuda, case, mode):
         assert missing[:, -1].all()
     if kw.get("lattice"):
         assert (d_k[:, 1:] == d_k[:, :-1])[~missing[:, 1:]].any()
+
+
+@pytest.mark.parametrize("C,M,k,cached", [
+    (64, 1064, 100, True),      # the 1M torus's k=100 buckets: 1 KB class
+    (64, 1864, 128, False),     # past CACHE_BUDGET in the 1 KB class
+    (248, 2136, 200, True),     # the 1M torus's largest k=200 bucket
+    (1144, 11360, 1024, False),  # its largest k=1024 bucket
+    (8, 5000, 1024, False),     # the 8 KB class past the card's 227 KB
+    (1, 9000, 1024, True),      # one warp: 8 KB + 24 B a slot fit
+])
+def test_select_layout_classes(cuda, C, M, k, cached):
+    """The layout each scratch class takes (knn_warp.cuh's
+    select_layout): 1 KB a warp up to k = 128 under a 100 KB budget,
+    else 8·P bytes under the card's 227 KB a block."""
+    from pct_tpu_torch.ops.select import select_layout
+
+    W = min(8, C)
+    scr = 1024 if k <= 128 else 8 * max(256, 1 << (k - 1).bit_length())
+    mp = (M + 3) & ~3
+    staged = W * scr + W * mp * 4 + mp * 20
+    assert (staged <= (100 if k <= 128 else 227) * 1024) == cached
+    assert select_layout(C, M, k) == (staged if cached else -W * scr)
 
 
 # --- the mesh path on the card against its CPU run --------------------------

@@ -14,7 +14,7 @@
     atol 1e-6, id sets equal wherever the kth neighbor is not nearly
     tied with the next.
 (d) ``knn_grid`` and ``ball_grid`` against the JAX ones.
-(e) The list limit: k = 128 runs, k = 129 raises.
+(e) The list limit: k = 1024 runs, k = 1025 raises.
 (f) ``lax.top_k``'s tie order: on an integer lattice, where every
     distance is exact in both packages and ties sit at the kth distance
     and among masked inf slots, ``knn_grid`` (rings 1 and 2),
@@ -352,10 +352,10 @@ def test_ball_grid_matches_jax(query_grids):
                                      knn_select],
                          ids=["coords", "rows", "pos"])
 def test_select_list_limit(wrapper):
-    """128 neighbors run on the CPU and give the 128 smallest usable
-    distances (numpy, same float32 operations); 129 raise, naming the
+    """1024 neighbors run on the CPU and give the 1024 smallest usable
+    distances (numpy, same float32 operations); 1025 raise, naming the
     limit."""
-    q, p, cand, qrow, valid = _random_tile(4, T=2, C=4, M=160)
+    q, p, cand, qrow, valid = _random_tile(4, T=2, C=4, M=1100)
     d, _ = wrapper(*(torch.from_numpy(a) for a in (q, p, cand, qrow, valid)),
                    KMAX)
     diff = q[:, :, None, :] - p[:, None, :, :]
@@ -366,7 +366,8 @@ def test_select_list_limit(wrapper):
     # torch's square root on the CPU: numpy's differs in the last ulp
     np.testing.assert_array_equal(d.numpy(),
                                   torch.sqrt(torch.from_numpy(want)).numpy())
-    with pytest.raises(ValueError, match="at most 128"):
+    assert KMAX == 1024
+    with pytest.raises(ValueError, match="at most 1024"):
         wrapper(*(torch.from_numpy(a) for a in (q, p, cand, qrow, valid)),
                 KMAX + 1)
 

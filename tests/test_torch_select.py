@@ -120,7 +120,7 @@ def test_select_wrapper_checks_operands():
     with pytest.raises(ValueError, match="int32"):
         knn_select_coords(q, p, cand.long(), qrow, valid, 5)
     with pytest.raises(ValueError, match="outside"):
-        knn_select_coords(q, p, cand, qrow, valid, 129)
+        knn_select_coords(q, p, cand, qrow, valid, 1025)
 
 
 @pytest.mark.parametrize("make,k", [

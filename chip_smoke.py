@@ -180,14 +180,13 @@ without printing its result line:
     c. both demos' ``run()`` on the card against ``run(device="cpu")``
        within 1e-5, with the JAX tests' sign and residual rules;
     each path's warm wall beside the card's name and power limit;
-14. past 128 neighbors (the selects keep up to 1024), same cloud:
+14. past 128 neighbors (the warp classes, k <= 1024), same cloud:
     a. the rows, positions and coords kernels against their plain
        versions, bit for bit, on every bucket of ``knn_cloud_grid(k)``'s
        probe at k = 129, 200 and 256 (past WIDE_PLAIN_BUDGET_S of
        plain-version time at 129 or 256, the later buckets' first
        WIDE_LATE_ROWS cell rows) and on the first WIDE_CUT_ROWS cell
-       rows of each bucket at k = 512 and 1024 (the plain version runs
-       k rounds); each bucket's layout (staged or streamed, shared bytes
+       rows of each bucket at k = 512 and 1024; each bucket's layout (staged or streamed, shared bytes
        a block) logged; at k = 200 each bucket's kernel ms, plain ms,
        the partial ``torch.topk`` yardstick and the bound; the band
        kernel at k = 129 and 200 on phase 5e's operands, with every slot
@@ -205,13 +204,41 @@ without printing its result line:
     c. ``knn_cloud_grid`` at k = 1024 once: ~8 GB of indices and
        distances, its exact fraction (1.0), wall and peak memory, kth
        distance against brute force;
+15. past 1024 neighbors (the block class: a whole block a query slot),
+    same cloud:
+    a. the rows, positions and coords kernels against their plain
+       versions, bit for bit, on the first HUGE_CUT_ROWS cell rows of
+       each bucket of ``knn_cloud_grid(k)``'s probe at k = 1025, 1536,
+       2048 and 4096, each bucket's layout logged; at k = 2048 each
+       bucket's kernel ms on the whole bucket and on the compared rows,
+       the plain version's and the partial ``torch.topk`` yardstick's ms
+       on the compared rows, and the bound; past 16,384 winners a
+       query, k = 20,000 on the k = 4096 probe's largest bucket cut to
+       HUGE_CUT_ROWS cell rows and HUGE_SORT_QUERIES query slots (the
+       device-memory sort); the band kernel at k = 1025 and 2048 on
+       the first HUGE_BAND_BLOCKS row blocks of phase 5e's operands,
+       with every slot computed and with the counts, and its time at
+       k = 2048;
+    b. ``knn_cloud_grid`` at k = 2048 once (~17 GB of indices and
+       distances): rows launches one a bucket, exact 1.0, kth distance
+       against brute force on sampled rows, wall and peak memory;
+    c. at k = 1100, each driven with the counts set to 0 just before it
+       and read just after: ``fast_curvature(method="implicit")`` (the
+       staged route), ``curvature_pipeline``, ``compat.
+       estimate_curvature(k_fraction=0.0011, max_neighbors=1100)`` (k =
+       1100; the surface variation of knn_cloud_grid's neighbors, bit
+       for bit) and ``fused_curvature(engine="list")`` on the implicit
+       probe's buckets (coords launches one a bucket): NaN 0, median K
+       errors printed; then explicit ``fast_curvature(2048)`` (the
+       moments engine, unchanged): NaN 0, exact and K error printed;
 13. the kernel table (one JSON line, eight kernels, each with the card's
     name and power limit; each package kernel's ``mesh_path`` lists its
     records at phase 7's and phase 8's shapes, ``validation`` its
     launches in phase 9, ``distributed`` its launches in 10a-10c,
     ``compat`` its launches in phase 12; the coords, rows, positions and
-    band kernels' ``k200`` their phase 14 numbers at k = 200; each script
-    kernel names its ``script``) and the result line.
+    band kernels' ``k200`` their phase 14 numbers at k = 200 and
+    ``k2048`` their phase 15 numbers at k = 2048; each script kernel
+    names its ``script``) and the result line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -284,6 +311,13 @@ WIDE_CUT_ROWS = 2                # cell rows a bucket compared at k > 256
 WIDE_PLAIN_BUDGET_S = 60.0       # plain-version time a k, untimed k
 WIDE_LATE_ROWS = 256             # cell rows a bucket compared past it
 WIDE_BAND_PLAIN_S = 8.0          # band plain-version time a (k, mode)
+K_HUGE = 1100                    # phase 15's entry points (past 1024)
+K_HUGE_KNN = 2048                # knn_cloud_grid once, the timed kernels
+HUGE_KS = (1025, 1536, K_HUGE_KNN, 4096)   # phase 15's kernel checks
+HUGE_CUT_ROWS = 2                # cell rows a bucket compared past 1024
+K_SORT = 20_000                  # past the block's 16,384 shared keys
+HUGE_SORT_QUERIES = 16           # query slots a row at k = K_SORT
+HUGE_BAND_BLOCKS = 2048          # row blocks of the band at k > 1024
 
 
 def log(*a):
@@ -2316,6 +2350,20 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
                    if got[name]} for name in counters}
 
 
+def knn_layout(cloud, k):
+    """``knn_cloud_grid(k)``'s grid, cell table and bucket probe."""
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+
+    n = cloud.num_points
+    grid = build_grid(cloud.points, n, estimate_cell_size(cloud.points, n, k))
+    spec, mc = cellknn.probe_grid_buckets(
+        grid, capacity_cap=cellknn.library_capacity_cap(k))
+    log(f"knn_cloud_grid k={k}: {len(spec)} buckets "
+        f"{[tuple(s) for s in spec]}")
+    return grid, cellknn.compact_cells(grid, mc), spec
+
+
 def wide_vs_plain(cellknn, grid, cells, spec, k, label, timed=False,
                   cut_rows=None):
     """The rows, positions and coords kernels against their plain
@@ -2323,10 +2371,12 @@ def wide_vs_plain(cellknn, grid, cells, spec, k, label, timed=False,
     probe (the operands ``knn_cellwise_bucketed`` gives them); with
     ``cut_rows`` on the first cut_rows cell rows of each bucket only;
     untimed, past WIDE_PLAIN_BUDGET_S of plain-version time the later
-    buckets keep their first WIDE_LATE_ROWS cell rows. With ``timed``, each bucket's kernel ms (CUDA events, full bucket),
-    its plain ms (the compared call, one run), the partial ``torch.topk``
-    yardstick and the bound. Returns ({name: per-bucket rows}, largest
-    abs error, each bucket's layout)."""
+    buckets keep their first WIDE_LATE_ROWS cell rows. With ``timed``,
+    each bucket's kernel ms (CUDA events, full bucket; with ``cut_rows``
+    also on the compared rows), the plain version's ms (the compared
+    call, one run) and the partial ``torch.topk`` yardstick's on the
+    compared rows, and the bound of the full bucket. Returns ({name:
+    per-bucket rows}, largest abs error, each bucket's layout)."""
     import torch
 
     from pct_tpu_torch.ops.select import (
@@ -2339,9 +2389,9 @@ def wide_vs_plain(cellknn, grid, cells, spec, k, label, timed=False,
         select_rows_plain,
     )
 
-    kernels = {"select_rows": (knn_select_rows, select_rows_plain),
-               "select_pos": (knn_select, select_pos_plain),
-               "select_coords": (knn_select_coords, select_coords_plain)}
+    kernels = {"select_rows": (knn_select_rows, select_rows_plain, 1),
+               "select_pos": (knn_select, select_pos_plain, 1),
+               "select_coords": (knn_select_coords, select_coords_plain, 3)}
     per = {name: [] for name in kernels}
     layouts = []
     rows = mismatched = 0
@@ -2350,6 +2400,7 @@ def wide_vs_plain(cellknn, grid, cells, spec, k, label, timed=False,
             grid, cells, spec)):
         ops = cellknn._select_operands(grid, args, sp.capacity, sp.cand_cap,
                                        with_ids=True)[0]
+        T, C = ops[0].shape[:2]
         M = ops[1].shape[1]
         lay = select_layout(sp.capacity, M, k)
         layouts.append(lay)
@@ -2369,10 +2420,10 @@ def wide_vs_plain(cellknn, grid, cells, spec, k, label, timed=False,
         pairs = int((count * tot).sum())
         lib_ms = None
         if timed:
-            d_pos, pos = knn_select(*ops, k)
-            lib_ms = topk_yardstick(ops, k, d_pos, pos)
+            d_pos, pos = knn_select(*cmp_ops, k)
+            lib_ms = topk_yardstick(cmp_ops, k, d_pos, pos)
             del d_pos, pos
-        for name, (kernel, plain) in kernels.items():
+        for name, (kernel, plain, width) in kernels.items():
             d_k, w_k = kernel(*cmp_ops, k)
             torch.cuda.synchronize()
             a = torch.cuda.Event(enable_timing=True)
@@ -2383,25 +2434,31 @@ def wide_vs_plain(cellknn, grid, cells, spec, k, label, timed=False,
             z.record()
             torch.cuda.synchronize()
             plain_s += time.perf_counter() - t0
-            T, C = d_k.shape[:2]
+            T_c = d_k.shape[0]
             same = ((d_k.view(torch.int32) == d_p.view(torch.int32))
                     & (w_k.view(torch.int32) == w_p.view(torch.int32))
-                    .reshape(T, C, k, -1).all(-1)).all(-1)
+                    .reshape(T_c, C, k, -1).all(-1)).all(-1)
             rows += same.numel()
             mismatched += int((~same).sum())
             max_err = max(max_err, float((d_k - d_p).abs().max()),
                           float((w_k - w_p).abs().max()))
+            del d_k, w_k, d_p, w_p
             if timed:
-                nb = nbytes(*ops, d_k, w_k)
+                nb = nbytes(*ops) + T * C * k * 4 * (1 + width)
                 b_ms, b_by = bound(pairs, PAIR_FLOPS, 0, nb)
-                per[name].append(dict(
+                rec = dict(
                     bucket=b, cells=int((args[0] != cellknn.PAD_ID).sum()),
                     capacity=sp.capacity, M=M, cell_rows=T, pairs=pairs,
                     bytes=nb, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms, layout_bytes=lay,
                     ms=event_ms(lambda f=kernel: f(*ops, k), 3),
-                    plain_ms=a.elapsed_time(z)))
-            del d_k, w_k, d_p, w_p
+                    plain_ms=a.elapsed_time(z))
+                if cut_rows is not None:
+                    rec["compared_rows"] = T_c
+                    rec["ms_compared_rows"] = event_ms(
+                        lambda f=kernel: f(*cmp_ops, k), 3)
+                per[name].append(rec)
+                torch.cuda.empty_cache()
     log(f"{label} vs plain: {rows} query rows compared, {mismatched} "
         f"mismatched, max abs err {max_err}, plain-version time "
         f"{plain_s:.1f} s")
@@ -2454,18 +2511,9 @@ def wide_k_phase(label, cloud, pts, counters, none):
     n = cloud.num_points
     out = {"walls": {}}
 
-    def knn_layout(k):
-        grid = build_grid(cloud.points, n,
-                          estimate_cell_size(cloud.points, n, k))
-        spec, mc = cellknn.probe_grid_buckets(
-            grid, capacity_cap=cellknn.library_capacity_cap(k))
-        log(f"knn_cloud_grid k={k}: {len(spec)} buckets "
-            f"{[tuple(s) for s in spec]}")
-        return grid, cellknn.compact_cells(grid, mc), spec
-
     # --- 14a. the kernels against their plain versions ---
     for k in WIDE_KS:
-        grid, cells, spec = knn_layout(k)
+        grid, cells, spec = knn_layout(cloud, k)
         cut = WIDE_CUT_ROWS if k > 256 else None
         per, err, layouts = wide_vs_plain(
             cellknn, grid, cells, spec, k, f"selects k={k}",
@@ -2598,6 +2646,249 @@ def wide_k_phase(label, cloud, pts, counters, none):
     del big
     torch.cuda.empty_cache()
     log(f"[{label}] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def device_sort_check(cloud, grid, cells, spec, k):
+    """Past 16,384 winners a query the block class sorts over a
+    device-memory workspace: k = ``k`` on the largest bucket of ``spec``
+    cut to its HUGE_CUT_ROWS cell rows with the most candidates and
+    HUGE_SORT_QUERIES query slots,
+    every kernel bit-identical to its plain version, and some query with
+    more than 16,384 winners (so the device-memory merge steps ran).
+    Returns the largest abs error."""
+    import torch
+
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.ops.select import (
+        SORT_KEYS,
+        knn_select,
+        knn_select_coords,
+        knn_select_rows,
+        select_coords_plain,
+        select_layout,
+        select_pos_plain,
+        select_rows_plain,
+    )
+
+    b = max(range(len(spec)), key=lambda i: spec[i].cand_cap)
+    sp, args = list(cellknn.bucketed_tile_args(grid, cells, spec))[b]
+    ops = cellknn._select_operands(grid, args, sp.capacity, sp.cand_cap,
+                                   with_ids=True)[0]
+    top = ops[4].sum(1).argsort(descending=True)[:HUGE_CUT_ROWS]
+    q, p, cand, qrow, valid = (a[top].contiguous() for a in ops)
+    cut = (q[:, :HUGE_SORT_QUERIES].contiguous(), p, cand,
+           qrow[:, :HUGE_SORT_QUERIES].contiguous(), valid)
+    M = p.shape[1]
+    max_err = 0.0
+    for kernel, plain in ((knn_select_rows, select_rows_plain),
+                          (knn_select, select_pos_plain),
+                          (knn_select_coords, select_coords_plain)):
+        d_k, w_k = kernel(*cut, k)
+        torch.cuda.synchronize()
+        d_p, w_p = plain(*cut, k)
+        found = int((d_k < 1e18).sum(-1).max())
+        check(torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+              and torch.equal(w_k.view(torch.int32), w_p.view(torch.int32)),
+              f"k={k}, M={M}: {kernel.__name__} bit-identical to its plain "
+              "version (device-memory sort)")
+        max_err = max(max_err, float((d_k - d_p).abs().max()))
+    log(f"device-memory sort, k={k} on bucket {b} (M {M}, layout "
+        f"{select_layout(HUGE_SORT_QUERIES, M, k)} shared bytes): "
+        f"{HUGE_CUT_ROWS} cell rows x {HUGE_SORT_QUERIES} query slots, "
+        f"up to {found} winners a query, bit-identical")
+    check(found > SORT_KEYS, f"k={k}: a query sorts more than {SORT_KEYS} "
+          "winners (the device-memory merge steps ran)")
+    return max_err
+
+
+def cut_band(ops, counts, blocks):
+    """Phase 5e's band operands and counts on their first ``blocks`` row
+    blocks (the planes whole)."""
+    return ops[:3] + tuple(a[:blocks].contiguous() for a in ops[3:]), \
+        counts[:blocks].contiguous()
+
+
+def huge_k_phase(label, cloud, pts, counters, none):
+    """Phase 15: the selects past 1024 neighbors on the 1M torus (the
+    docstring's 15a-15c)."""
+    import numpy as np
+    import torch
+
+    from pct_tpu_torch import compat
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.curvature.pca import surface_variation
+    from pct_tpu_torch.experimental import knn_band_select
+    from pct_tpu_torch.neighbors import cellknn, knn_cloud_grid
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
+    from pct_tpu_torch.pipeline import (
+        curvature_pipeline,
+        fast_curvature,
+        fused_curvature,
+    )
+    from pct_tpu_torch.pipeline.fused import plan_engine
+    from pct_tpu_torch.shapes import analytic_curvatures
+
+    t_phase = time.perf_counter()
+    n = cloud.num_points
+    out = {"walls": {}, "max_err": {}, "layouts": {}}
+
+    # --- 15a. the kernels against their plain versions ---
+    for k in HUGE_KS:
+        grid, cells, spec = knn_layout(cloud, k)
+        per, err, layouts = wide_vs_plain(
+            cellknn, grid, cells, spec, k, f"selects k={k}",
+            timed=(k == K_HUGE_KNN), cut_rows=HUGE_CUT_ROWS)
+        out["max_err"][k], out["layouts"][k] = err, layouts
+        if k == K_HUGE_KNN:
+            out["buckets"], out["spec"] = per, spec
+        if k == HUGE_KS[-1]:
+            out["max_err"][K_SORT] = device_sort_check(cloud, grid, cells,
+                                                       spec, K_SORT)
+        del grid, cells
+        torch.cuda.empty_cache()
+    ops, counts, cap, band = band_inputs(cloud)
+    ops, counts = cut_band(ops, counts, HUGE_BAND_BLOCKS)
+    band_err = 0.0
+    for k in (1025, K_HUGE_KNN):
+        for mode_counts in (None, counts):
+            got, blocks, _, err, plain_s, _ = band_vs_plain(
+                ops, k, BAND_BC, cap, band, mode_counts,
+                budget_s=WIDE_BAND_PLAIN_S)
+            band_err = max(band_err, err)
+            if k == K_HUGE_KNN and mode_counts is not None:
+                out["band_plain"] = (plain_s * 1e3, blocks)
+            del got
+    nb = ops[3].shape[0]
+    pairs = int((ops[5].sum(-1).to(torch.int64) * counts).sum())
+    band_ms = event_ms(lambda: knn_band_select(
+        *ops, k=K_HUGE_KNN, bc=BAND_BC, cap=cap, band=band, counts=counts),
+        TIMED_REPS)
+    b_ms, b_by = bound(pairs, PAIR_FLOPS, 0, nbytes(*ops, counts)
+                       + nb * BAND_BC * cap * (K_HUGE_KNN * 8 + 4))
+    plain_ms, plain_blocks = out["band_plain"]
+    out["band"] = dict(ms=band_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None, max_err=band_err,
+                       plain_blocks=plain_blocks, blocks=nb)
+    log(f"[{label}] band kernel k={K_HUGE_KNN} (counts): {band_ms:.3f} "
+        f"ms/call over the first {nb} blocks, band {band}; plain "
+        f"{plain_ms:.1f} ms over {plain_blocks} of them; bound {b_ms:.4f} "
+        f"ms ({b_by})")
+    del ops, counts
+    torch.cuda.empty_cache()
+
+    # --- 15b. knn_cloud_grid at k = 2048, once ---
+    k = K_HUGE_KNN
+    nk = len(out["spec"])
+    torch.cuda.reset_peak_memory_stats()
+    big, walls, launches = drive(
+        lambda: knn_cloud_grid(cloud, k)[0], f"knn_cloud_grid k={k}",
+        counters, {**none, "select_rows": nk}, warm=0,
+        want_by_k={"select_rows": {k: nk}})
+    out["walls"][f"knn_cloud_grid k={k}"] = walls
+    out["launches"] = launches["select_rows"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    exact = float(big.exact[:n].float().mean())
+    log(f"[{label}] knn_cloud_grid k={k}, 1M torus: wall {walls[0]:.3f} s "
+        f"(one call), {nbytes(big.indices, big.dists) / 1e9:.2f} GB of "
+        f"indices and distances, exact {exact}, valid "
+        f"{float(big.valid[:n].float().mean())}, peak device memory "
+        f"{out['peak_gb']:.1f} GB")
+    check(bool(big.exact[:n].all()) and bool(big.valid[:n].all()),
+          f"knn_cloud_grid k={k}: exact 1.0 and every slot found")
+    check(tuple(big.indices.shape) == (cloud.capacity, k),
+          f"knn_cloud_grid k={k}: output shape")
+    kth_vs_bruteforce(types.SimpleNamespace(
+        exact=big.exact, kth_dist=big.dists[:, -1]), cloud, k)
+    del big
+    torch.cuda.empty_cache()
+
+    # --- 15c. the entry points at k = 1100, explicit k = 2048 ---
+    k = K_HUGE
+    Ka, _ = analytic_curvatures("torus", pts)
+    n_knn = len(knn_layout(cloud, k)[2])
+    want = {**none, "select_rows": n_knn}
+    by_k = {"select_rows": {k: n_knn}}
+    grid = build_grid(cloud.points, n, estimate_cell_size(cloud.points, n, k))
+    probe, mc = cellknn.probe_grid_buckets(grid, capacity_cap=max(256, 4 * k))
+    check(not any(cellknn.list_engine_ok(sp.capacity, sp.cand_cap, k)
+                  for sp in probe),
+          f"implicit k={k} takes the staged route (knn_cloud_grid)")
+    imp, out["walls"]["implicit"], _ = drive(
+        lambda: fast_curvature(cloud, k, method="implicit"),
+        f"implicit k={k}", counters, want, warm=1, want_by_k=by_k)
+    out["implicit_err"] = implicit_accuracy(imp, cloud, pts, k)
+    del imp
+
+    pipe, out["walls"]["curvature_pipeline"], _ = drive(
+        lambda: curvature_pipeline(cloud, k), f"curvature_pipeline k={k}",
+        counters, want, warm=1, want_by_k=by_k)
+    K = pipe.curv.K[:n].cpu().numpy()
+    out["pipeline_err"] = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
+    log(f"curvature_pipeline k={k}: NaN fraction {float(np.isnan(K).mean())}"
+        f", median scale-relative K error {out['pipeline_err']:.4e}")
+    check(not np.isnan(K).any(), f"curvature_pipeline k={k}: no NaN")
+    del pipe, K
+
+    fc = from_numpy(pts, device=cloud.points.device)   # compat's padding
+    frac = k / n
+    k_est = int(min(max(n * frac, 3), k, n - 1))
+    check(k_est == k, f"estimate_curvature at k_fraction {frac}: k = {k}")
+    n_est = len(knn_buckets(fc.points, n, k_est))
+    sv, out["walls"]["estimate_curvature"], _ = drive(
+        lambda: compat.estimate_curvature(pts, k_fraction=frac,
+                                          max_neighbors=k),
+        f"estimate_curvature max_neighbors={k}", counters,
+        {**none, "select_rows": n_est}, warm=1,
+        want_by_k={"select_rows": {k_est: n_est}})
+    ref = knn_cloud_grid(fc, k_est)[0]
+    want_sv = surface_variation(fc.points, ref.indices[:n]).cpu().numpy()
+    check(sv.shape == (n,) and not np.isnan(sv).any()
+          and bool((sv >= 0).all()), f"estimate_curvature k={k}: >= 0, no "
+          "NaN")
+    check(bool((sv == want_sv).all()), f"estimate_curvature k={k}: surface "
+          "variation of knn_cloud_grid's neighbors, bit for bit")
+    log(f"estimate_curvature(k_fraction={frac}, max_neighbors={k}): "
+        f"k={k_est}, {n_est} rows launches a call, median "
+        f"{float(np.median(sv)):.4e}")
+    del sv, ref, fc
+    torch.cuda.empty_cache()
+
+    cell = estimate_cell_size(cloud.points, n, k)
+    fl, out["walls"]["fused_curvature list"], _ = drive(
+        lambda: fused_curvature(cloud.points, n, cell, k, bucket_spec=probe,
+                                max_cells=mc, engine="list"),
+        f"fused_curvature(engine='list') k={k}", counters,
+        {**none, "select_coords": len(probe)}, warm=1,
+        want_by_k={"select_coords": {k: len(probe)}})
+    K = fl.curv.K[:n].cpu().numpy()
+    out["list_err"] = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
+    log(f"fused_curvature(engine='list') k={k}: {len(probe)} buckets, exact "
+        f"{float(fl.exact[:n].float().mean()):.6f}, NaN fraction "
+        f"{float(np.isnan(K).mean())}, median scale-relative K error "
+        f"{out['list_err']:.4e}")
+    check(not np.isnan(K).any(), f"fused_curvature list k={k}: no NaN")
+    del fl, K, grid
+    torch.cuda.empty_cache()
+
+    k = K_HUGE_KNN
+    grid = build_grid(cloud.points, n, estimate_cell_size(cloud.points, n, k))
+    engine, spec, _, _ = plan_engine(grid, k)
+    check(engine == "moments", f"explicit k={k} runs the moments engine")
+    del grid
+    mom, out["walls"][f"fast_curvature k={k}"], _ = drive(
+        lambda: fast_curvature(cloud, k), f"fast_curvature k={k}", counters,
+        {**none, "moments": len(spec)}, warm=1)
+    K = mom.curv.K[:n].cpu().numpy()
+    out["moments_err"] = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
+    log(f"fast_curvature k={k} (moments, {len(spec)} buckets): exact "
+        f"{float(mom.exact[:n].float().mean()):.6f}, NaN fraction "
+        f"{float(np.isnan(K).mean())}, median scale-relative K error "
+        f"{out['moments_err']:.4e}")
+    check(not np.isnan(K).any(), f"fast_curvature k={k}: no NaN")
+    del mom, K
+    torch.cuda.empty_cache()
+    log(f"[{label}] phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2847,6 +3138,9 @@ def main():
     # --- 14. past 128 neighbors ---
     wide = wide_k_phase(label, cloud, pts, counters, none)
 
+    # --- 15. past 1024 neighbors ---
+    huge = huge_k_phase(label, cloud, pts, counters, none)
+
     # --- 6. numbers ---
     for name, walls in ((f"fast_curvature k={K_LIST}", walls20),
                         (f"fast_curvature k={K_MOM}", walls100),
@@ -2877,6 +3171,22 @@ def main():
     log(f"[{label}] phase 14 median errors: implicit k={K_WIDE} K / |H| "
         f"{wide['implicit_err'][0]:.4e} / {wide['implicit_err'][1]:.4e}, "
         f"curvature_pipeline k={K_WIDE} K {wide['pipeline_err']:.4e}")
+    for name in ("select_rows", "select_pos", "select_coords"):
+        log_buckets(label, f"{name} k={K_HUGE_KNN}", huge["buckets"][name])
+        for r in huge["buckets"][name]:
+            log(f"[{label}] {name} k={K_HUGE_KNN} bucket {r['bucket']} on "
+                f"its first {r['compared_rows']} cell rows: kernel "
+                f"{r['ms_compared_rows']:.3f} ms, plain {r['plain_ms']:.3f}"
+                f" ms, torch.topk {fmt_ms(r['library_ms'])}")
+    for name, walls in huge["walls"].items():
+        log(f"[{label}] phase 15 {name}: walls {[round(w, 4) for w in walls]}"
+            f" s (first call cold)")
+    log(f"[{label}] phase 15 median K errors: implicit k={K_HUGE} "
+        f"{huge['implicit_err'][0]:.4e} (|H| {huge['implicit_err'][1]:.4e})"
+        f", curvature_pipeline {huge['pipeline_err']:.4e}, fused list "
+        f"{huge['list_err']:.4e}; explicit k={K_HUGE_KNN} (moments) "
+        f"{huge['moments_err']:.4e}; knn_cloud_grid k={K_HUGE_KNN} peak "
+        f"{huge['peak_gb']:.1f} GB")
     rows = [
         kernel_row("select_coords", "pct_tpu_torch/csrc/select_coords.cu",
                    "pct_tpu/ops/pallas_select.py:88",
@@ -2932,6 +3242,30 @@ def main():
         r["k200"]["layout_bytes"] = [b["layout_bytes"]
                                      for b in wide["buckets"][name]]
         r["max_abs_err_past_128"] = wide["max_err"]
+    # k=2048 (phase 15, the block class): the rows kernel on
+    # knn_cloud_grid(k=2048)'s path, the positions and coords kernels on
+    # the same operands, the band kernel on the first HUGE_BAND_BLOCKS row
+    # blocks of phase 5e's operands (no entry point launches those three
+    # at k=2048); plain and library ms on each bucket's compared rows
+    huge_err = max(huge["max_err"].values())
+    for r, name, launches in ((rows[0], "select_coords", 0),
+                              (rows[2], "select_rows", huge["launches"]),
+                              (rows[3], "select_pos", 0)):
+        r["k2048"] = kernel_row(name, r["source"], r["replaces"], launches,
+                                huge_err, huge["buckets"][name])
+        r["k2048"]["plain_and_library_on_rows"] = HUGE_CUT_ROWS
+        r["k2048"]["ms_compared_rows"] = sum(
+            b["ms_compared_rows"] for b in huge["buckets"][name])
+        r["k2048"]["layout_bytes"] = [b["layout_bytes"]
+                                      for b in huge["buckets"][name]]
+        r["max_abs_err_past_1024"] = huge["max_err"]
+    rows[4]["k2048"] = {"name": "band_select", "route": "cuda",
+                        "source": rows[4]["source"],
+                        "replaces": rows[4]["replaces"], "launches": 0,
+                        "max_abs_err": huge["band"]["max_err"],
+                        **{key: huge["band"][key] for key in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "plain_blocks", "blocks")}}
     rows[4]["k200"] = {"name": "band_select", "route": "cuda",
                        "source": rows[4]["source"],
                        "replaces": rows[4]["replaces"], "launches": 0,
@@ -2943,7 +3277,10 @@ def main():
     for r, calls, k in [(r, 4, "") for r in rows] + [
             (rows[2]["k100"], 3, " k=100"), (rows[3]["k100"], 3, " k=100"),
             (rows[0]["k200"], 3, " k=200"), (rows[2]["k200"], 3, " k=200"),
-            (rows[3]["k200"], 3, " k=200"), (rows[4]["k200"], 1, " k=200")]:
+            (rows[3]["k200"], 3, " k=200"), (rows[4]["k200"], 1, " k=200"),
+            (rows[0]["k2048"], 1, " k=2048"), (rows[2]["k2048"], 1, " k=2048"),
+            (rows[3]["k2048"], 1, " k=2048"),
+            (rows[4]["k2048"], 1, " k=2048")]:
         lib = ("" if r["library_ms"] is None else
                f", library yardstick (partial) {r['library_ms']:.3f} ms")
         log(f"[{label}] {r['name']}{k} kernel: {r['ms']:.3f} ms/call "

@@ -21,9 +21,6 @@ Intentional divergences (documented, all improvements):
 - ``plant_kdtree`` builds the grid index; queries are exact (certified)
 - energies are O(T) (the reference's are O(T²), ref utils.py:757-760)
 - SLSQP quadric fits are closed-form smallest-eigenvector solves
-- ``estimate_curvature(max_neighbors=)`` above 1024 raises ``ValueError``
-  (the selects keep at most 1024 neighbors: past that a warp's sort keys
-  would take 16 KB of shared memory, 128 KB for a block of 8 warps)
 - the neighbor study draws its sample from a ``torch.Generator``
 """
 
@@ -40,7 +37,6 @@ from pct_tpu_torch.io import load_points
 from pct_tpu_torch.io.ply import read_ply, write_ply
 from pct_tpu_torch.mesh.downsample import voxel_downsample
 from pct_tpu_torch.neighbors import knn_cloud_grid
-from pct_tpu_torch.ops.select import KMAX
 from pct_tpu_torch.pipeline.curvature_pipeline import pointwise_curvature
 
 
@@ -316,13 +312,10 @@ def estimate_curvature(points, k_fraction: float = 0.025,
                        device: str | torch.device = "cuda"):
     """Surface-variation PCA curvature (ref utils.py:778-829). ``k`` is
     min(max(n·k_fraction, 3), max_neighbors, n - 1), ``max_neighbors``
-    on any cloud over 4,000 points at the default fraction;
-    ``max_neighbors`` above the selects' 1024 raises ``ValueError``."""
+    on any cloud over 4,000 points at the default fraction; any k runs,
+    as in the JAX package."""
     from pct_tpu_torch.curvature.pca import surface_variation
 
-    if max_neighbors > KMAX:
-        raise ValueError(f"max_neighbors {max_neighbors} > {KMAX}, the "
-                         "most neighbors the port's selects keep")
     pts = np.asarray(points, np.float32)
     n = pts.shape[0]
     k = int(min(max(n * k_fraction, 3), max_neighbors, n - 1))

@@ -57,11 +57,17 @@
 //   with the warp's bitonic network and writes them with consecutive lanes
 //   on consecutive j. That is the set and the order of the Pallas kernel's
 //   k rounds of min, first-argmin and mask-out.
-// - k runs to 1024: each warp's scratch (histogram, then the sort's keys)
-//   is knn_warp.cuh's class of k, 1 KB up to k = 128 as before, else 8
-//   bytes a key for the next power of two >= k; the kernel is instantiated
-//   once a class. The band's own limits stay the JAX package's window:
-//   band <= 1024 and bc * cap <= 1024 query slots a block.
+// - Up to k = 1024 each warp's scratch (histogram, then the sort's keys)
+//   is knn_warp.cuh's class of k, 1 KB up to k = 128, else 8 bytes a key
+//   for the next power of two >= k; the kernel is instantiated once a
+//   class. Past 1024, band_block_kernel (the block class) runs the same
+//   set-up, then gives the whole block to one computed query slot at a
+//   time: its M <= 9 * band candidates' bits in one shared slice,
+//   knn_warp.cuh's block select in (j, p) order and the n <= min(k, M)
+//   keys sorted in shared memory (at most 9 * 1024 of them, 72 KB). So
+//   any k runs, as the Pallas kernel takes any k. The band's own limit is
+//   the JAX package's window, band <= 1024; a block takes any bc * cap
+//   query slots, as the JAX package's does.
 
 #include "knn_warp.cuh"
 
@@ -70,13 +76,14 @@ namespace {
 using namespace knn_warp;
 
 constexpr int NINE = 9;
-constexpr int KMAX = 1024;
 constexpr int BAND_WARPS = 8;
 constexpr int TILE = 2048;   // staged rows a block (the 9 hulls together)
 constexpr int BITS = 512;    // cached d2 bits a warp (candidates a query)
 constexpr int SEG = 20;      // a warp's segment table: off[10], p0[9]
 
-constexpr int MAX_SLOTS = 1024;   // bc * cap, query slots a block
+// dynamic shared bytes a block: the card's most, less the kernels' static
+// 148 bytes (sbs, slo, shi, start)
+constexpr size_t BAND_BUDGET = WIDE_BUDGET - 256;
 
 // A block's dynamic shared bytes at `bc` cells and `scr` scratch bytes a
 // warp.
@@ -231,37 +238,25 @@ __device__ void band_query(const Band& band, const BandRule& rule,
   __syncwarp();
 }
 
-template <int SCR>
-__global__ void __launch_bounds__(BAND_WARPS * 32)
-band_select_kernel(const float* __restrict__ px,
-                   const float* __restrict__ py,
-                   const float* __restrict__ pz,
-                   const int* __restrict__ bs,          // (NB,9)
-                   const int* __restrict__ rs_rel,      // (NB,bc,9)
-                   const int* __restrict__ run_len,     // (NB,bc,9)
-                   const float* __restrict__ qpts,      // (NB,Q,3)
-                   const int* __restrict__ qrow_base,   // (NB,bc)
-                   const float* __restrict__ lo_edge,   // (NB,bc,3)
-                   const float* __restrict__ hi_edge,   // (NB,bc,3)
-                   const int* __restrict__ counts,      // (NB,bc) or null
-                   float* __restrict__ dist,            // (S,k)
-                   int* __restrict__ rows,              // (S,k)
-                   float* __restrict__ cover,           // (S,)
-                   int npad, int k, int bc, int cap, int bandw) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int sbs[NINE], slo[NINE], shi[NINE], start[NINE + 1];
+// The block's set-up, every thread of it (8 warps): the band starts sbs,
+// pre[c] = computed slots of the cells before c, the hull of each band's
+// runs (slo, shi; start[j] its tile index), the tile staged where the hulls
+// fit it (returns whether they do), every slot's cover and the padding
+// slots' fill. Ends with a barrier.
+__device__ __forceinline__ bool band_prologue(
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ pz, const int* __restrict__ bs,
+    const int* __restrict__ rs_rel, const int* __restrict__ run_len,
+    const float* __restrict__ qpts, const float* __restrict__ lo_edge,
+    const float* __restrict__ hi_edge, const int* __restrict__ counts,
+    float* __restrict__ dist, int* __restrict__ rows,
+    float* __restrict__ cover, int npad, int k, int bc, int cap, int bandw,
+    int* sbs, int* slo, int* shi, int* start, int* pre, float* tx, float* ty,
+    float* tz) {
   const int W = blockDim.x >> 5, warp = threadIdx.x >> 5,
             lane = threadIdx.x & 31, tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const int Q = bc * cap;
-  unsigned char* scratch = smem + warp * SCR;
-  unsigned* bits = reinterpret_cast<unsigned*>(smem + W * SCR) + warp * BITS;
-  float* tx = reinterpret_cast<float*>(smem + W * (SCR + BITS * 4));
-  float* ty = tx + TILE;
-  float* tz = ty + TILE;
-  int* seg = reinterpret_cast<int*>(tz + TILE) + warp * SEG;
-  int* pre = reinterpret_cast<int*>(tz + TILE) + W * SEG;   // (bc+1,)
-
   if (tid < NINE) {
     sbs[tid] = bs[b * NINE + tid];
     slo[tid] = bandw;
@@ -347,6 +342,44 @@ band_select_kernel(const float* __restrict__ px,
     }
   }
   __syncthreads();   // the tile is staged
+  return staged;
+}
+
+template <int SCR>
+__global__ void __launch_bounds__(BAND_WARPS * 32)
+band_select_kernel(const float* __restrict__ px,
+                   const float* __restrict__ py,
+                   const float* __restrict__ pz,
+                   const int* __restrict__ bs,          // (NB,9)
+                   const int* __restrict__ rs_rel,      // (NB,bc,9)
+                   const int* __restrict__ run_len,     // (NB,bc,9)
+                   const float* __restrict__ qpts,      // (NB,Q,3)
+                   const int* __restrict__ qrow_base,   // (NB,bc)
+                   const float* __restrict__ lo_edge,   // (NB,bc,3)
+                   const float* __restrict__ hi_edge,   // (NB,bc,3)
+                   const int* __restrict__ counts,      // (NB,bc) or null
+                   float* __restrict__ dist,            // (S,k)
+                   int* __restrict__ rows,              // (S,k)
+                   float* __restrict__ cover,           // (S,)
+                   int npad, int k, int bc, int cap, int bandw) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sbs[NINE], slo[NINE], shi[NINE], start[NINE + 1];
+  const int W = blockDim.x >> 5, warp = threadIdx.x >> 5,
+            lane = threadIdx.x & 31;
+  const size_t b = blockIdx.x;
+  const int Q = bc * cap;
+  unsigned char* scratch = smem + warp * SCR;
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + W * SCR) + warp * BITS;
+  float* tx = reinterpret_cast<float*>(smem + W * (SCR + BITS * 4));
+  float* ty = tx + TILE;
+  float* tz = ty + TILE;
+  int* seg = reinterpret_cast<int*>(tz + TILE) + warp * SEG;
+  int* pre = reinterpret_cast<int*>(tz + TILE) + W * SEG;   // (bc+1,)
+
+  const bool staged = band_prologue(px, py, pz, bs, rs_rel, run_len, qpts,
+                                    lo_edge, hi_edge, counts, dist, rows,
+                                    cover, npad, k, bc, cap, bandw, sbs, slo,
+                                    shi, start, pre, tx, ty, tz);
 
   for (int r = warp; r < pre[bc]; r += W) {
     int c = 0, hi = bc - 1;   // the cell of computed slot r
@@ -388,8 +421,153 @@ band_select_kernel(const float* __restrict__ px,
   }
 }
 
-// The kernel of one scratch class; raises its shared-memory limit to the
-// largest block it can take (bc * cap <= MAX_SLOTS) on first use.
+// The band's candidates as keys: flat index m < off[9] is position
+// p0[j] + (m - off[j]) of band j, concatenated position j * band + p.
+struct BandPos {
+  const int* off;
+  const int* p0;
+  int bandw;
+  __device__ unsigned operator()(int m) const {
+    int j = 0;
+#pragma unroll
+    for (int jj = 1; jj < NINE; ++jj) j += m >= off[jj];
+    return static_cast<unsigned>(j * bandw + p0[j] + m - off[j]);
+  }
+};
+
+// One computed query slot in the block class: the whole block on its M <=
+// 9 * band candidates (bits in the shared slice), knn_warp.cuh's block
+// select in (j, p) order, the n <= min(k, M) keys sorted in shared memory;
+// its k winners to dist[0, k) and rows[0, k).
+template <class Band>
+__device__ void band_block_query(const Band& band, const BandRule& rule,
+                                 const int* seg, unsigned* bits,
+                                 unsigned long long* keys, BlockScratch& s,
+                                 int bandw, int k, float* dist, int* rows) {
+  const int* off = seg;
+  const int* p0 = seg + 10;
+  const int M = off[NINE];
+  for (int j = 0; j < NINE; ++j) {
+    const auto sg = band.seg(j);
+    const int a = off[j], len = off[j + 1] - a, pj = p0[j];
+    for (int t = threadIdx.x; t < len; t += BLOCK_THREADS)
+      bits[a + t] = rule(j, sg, pj + t);
+  }
+  __syncthreads();
+  int n = 0;
+  if (M > 0)
+    n = block_select<true>(CachedBits{bits}, BandPos{off, p0, bandw}, M,
+                           min(k, M), keys, nullptr, s);
+  const float missing = __fsqrt_rn(SENT);
+  for (int j = threadIdx.x; j < k; j += BLOCK_THREADS) {
+    float d = missing;
+    int r = rule.bs[0];
+    if (j < n) {
+      const unsigned long long key = keys[j];
+      const int i = key_pos(key);
+      const int jb = i / bandw;
+      r = rule.bs[jb] + (i - jb * bandw);
+      d = key_dist(key);
+    }
+    dist[j] = d;
+    rows[j] = r;
+  }
+}
+
+// Dynamic shared bytes of a block-class block: the scratch, the tile, the
+// segment table, pre (bc + 1, 16-byte rounded), the bits of 9 * band
+// candidates and min(k, 9 * band) sort keys.
+size_t band_block_smem_bytes(int bc, int k, int bandw) {
+  const int mmax = NINE * bandw;
+  return BLOCK_SCRATCH + static_cast<size_t>(3 * TILE) * 4 + SEG * 4 +
+         static_cast<size_t>(pitch(bc + 1)) * 4 +
+         static_cast<size_t>(pitch(mmax)) * 4 +
+         static_cast<size_t>(min(k, mmax)) * 8;
+}
+
+// The block class of the band select (k > KWARP): one block per row block,
+// the warp kernel's set-up, then the whole block on one computed query slot
+// at a time.
+__global__ void __launch_bounds__(BLOCK_THREADS)
+band_block_kernel(const float* __restrict__ px,
+                  const float* __restrict__ py,
+                  const float* __restrict__ pz,
+                  const int* __restrict__ bs,          // (NB,9)
+                  const int* __restrict__ rs_rel,      // (NB,bc,9)
+                  const int* __restrict__ run_len,     // (NB,bc,9)
+                  const float* __restrict__ qpts,      // (NB,Q,3)
+                  const int* __restrict__ qrow_base,   // (NB,bc)
+                  const float* __restrict__ lo_edge,   // (NB,bc,3)
+                  const float* __restrict__ hi_edge,   // (NB,bc,3)
+                  const int* __restrict__ counts,      // (NB,bc) or null
+                  float* __restrict__ dist,            // (S,k)
+                  int* __restrict__ rows,              // (S,k)
+                  float* __restrict__ cover,           // (S,)
+                  int npad, int k, int bc, int cap, int bandw) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sbs[NINE], slo[NINE], shi[NINE], start[NINE + 1];
+  BlockScratch& s = *reinterpret_cast<BlockScratch*>(smem);
+  float* tx = reinterpret_cast<float*>(smem + BLOCK_SCRATCH);
+  float* ty = tx + TILE;
+  float* tz = ty + TILE;
+  int* seg = reinterpret_cast<int*>(tz + TILE);
+  int* pre = seg + SEG;                                       // (bc+1,)
+  unsigned* bits = reinterpret_cast<unsigned*>(pre + pitch(bc + 1));
+  unsigned long long* keys =
+      reinterpret_cast<unsigned long long*>(bits + pitch(NINE * bandw));
+  const size_t b = blockIdx.x;
+  const int Q = bc * cap, lane = threadIdx.x & 31;
+
+  const bool staged = band_prologue(px, py, pz, bs, rs_rel, run_len, qpts,
+                                    lo_edge, hi_edge, counts, dist, rows,
+                                    cover, npad, k, bc, cap, bandw, sbs, slo,
+                                    shi, start, pre, tx, ty, tz);
+  for (int r = 0; r < pre[bc]; ++r) {
+    int c = 0, hi = bc - 1;   // the cell of computed slot r
+    while (c < hi) {
+      const int mid = (c + hi + 1) >> 1;
+      if (pre[mid] <= r) c = mid;
+      else hi = mid - 1;
+    }
+    const int slot = r - pre[c];
+    const size_t cell = b * bc + c;
+    const size_t qi = b * Q + static_cast<size_t>(c) * cap + slot;
+    __syncthreads();   // the last query's segment table is read
+    if (threadIdx.x < 32) {   // the query's 9 runs: off[j], p0[j]
+      int len = 0, p0 = 0;
+      if (lane < NINE) {
+        const int rr = rs_rel[cell * NINE + lane];
+        p0 = max(rr, 0);
+        len = max(min(rr + run_len[cell * NINE + lane], bandw) - p0, 0);
+      }
+      int incl = len;
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1) {
+        const int t = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += t;
+      }
+      if (lane < NINE) {
+        seg[1 + lane] = incl;
+        seg[10 + lane] = p0;
+      }
+      if (lane == 0) seg[0] = 0;
+    }
+    __syncthreads();
+    const BandRule rule{sbs, qpts[qi * 3], qpts[qi * 3 + 1], qpts[qi * 3 + 2],
+                        qrow_base[cell] + slot};
+    if (staged)
+      band_block_query(TileBand{tx, ty, tz, start, slo}, rule, seg, bits,
+                       keys, s, bandw, k, dist + qi * k, rows + qi * k);
+    else
+      band_block_query(GlobalBand{px, py, pz, sbs, npad}, rule, seg, bits,
+                       keys, s, bandw, k, dist + qi * k, rows + qi * k);
+  }
+}
+
+// The kernel of one scratch class, or the block class past KWARP; raises
+// its shared-memory limit to BAND_BUDGET on first use and refuses a block
+// whose bytes exceed it (more than ~24,000 cells a block; a grid row holds
+// at most 1024).
 template <int SCR>
 int launch_band(const float* px, const float* py, const float* pz,
                 const int* bs, const int* rs_rel, const int* run_len,
@@ -398,13 +576,22 @@ int launch_band(const float* px, const float* py, const float* pz,
                 float* cover, int nb, int npad, int k, int bc, int cap,
                 int band, cudaStream_t s) {
   static bool raised = false;   // above 48 KB needs the attribute
-  const int e = raise_smem(band_select_kernel<SCR>,
-                           band_smem_bytes(MAX_SLOTS, SCR), raised);
-  if (e) return e;
-  band_select_kernel<SCR><<<nb, BAND_WARPS * 32, band_smem_bytes(bc, SCR),
-                            s>>>(px, py, pz, bs, rs_rel, run_len, qpts,
-                                 qrow_base, lo, hi, counts, dist, rows, cover,
-                                 npad, k, bc, cap, band);
+  const size_t bytes = SCR ? band_smem_bytes(bc, SCR)
+                           : band_block_smem_bytes(bc, k, band);
+  if (bytes > BAND_BUDGET) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (SCR == 0) {
+    const int e = raise_smem(band_block_kernel, BAND_BUDGET, raised);
+    if (e) return e;
+    band_block_kernel<<<nb, BLOCK_THREADS, bytes, s>>>(
+        px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo, hi, counts,
+        dist, rows, cover, npad, k, bc, cap, band);
+  } else {
+    const int e = raise_smem(band_select_kernel<SCR>, BAND_BUDGET, raised);
+    if (e) return e;
+    band_select_kernel<SCR><<<nb, BAND_WARPS * 32, bytes, s>>>(
+        px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo, hi, counts,
+        dist, rows, cover, npad, k, bc, cap, band);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -415,8 +602,8 @@ int launch_band(const float* px, const float* py, const float* pz,
 // qrow_base (nb,bc) int32; qpts (nb,bc*cap,3), lo/hi (nb,bc,3) float32;
 // counts (nb,bc) int32 or null (every slot computed); outputs dist (S,k)
 // float32, rows (S,k) int32, cover (S,) float32 with S = nb*bc*cap; all
-// contiguous. Require 1 <= bc*cap <= 1024, 1 <= k <= 1024 and
-// 1 <= band <= 1024 (checked by the wrapper).
+// contiguous. Require k >= 1, bc >= 1, cap >= 1 and 1 <= band <= 1024
+// (checked by the wrapper).
 extern "C" int pct_band_select(const float* px, const float* py,
                                const float* pz, const int* bs,
                                const int* rs_rel, const int* run_len,
@@ -426,9 +613,13 @@ extern "C" int pct_band_select(const float* px, const float* py,
                                float* cover, int nb, int npad, int k, int bc,
                                int cap, int band, void* stream) {
   if (nb <= 0) return 0;
-  if (k < 1 || k > KMAX || bc < 1 || cap < 1 || bc * cap > MAX_SLOTS)
+  if (k < 1 || bc < 1 || cap < 1 || band < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k > KWARP)
+    return launch_band<0>(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base,
+                          lo, hi, counts, dist, rows, cover, nb, npad, k, bc,
+                          cap, band, s);
   switch (scratch_bytes(k)) {
     case SCRATCH:
       return launch_band<SCRATCH>(px, py, pz, bs, rs_rel, run_len, qpts,

@@ -40,6 +40,10 @@
 // order the Pallas kernels' rounds of min and first-argmin emit.
 // select_kernel runs that over one cell row per block with an emitter for
 // the outputs (ids, positions or coordinates).
+//
+// Past k = 1024 the block class at the end of this file runs the same
+// select with a whole block on one query slot (select_block_kernel, and
+// band_select.cu's band_block_kernel); it takes any k.
 
 #pragma once
 
@@ -453,6 +457,341 @@ int launch_select(const float* q, const float* p, const int* cand,
       return launch_class<Out, 8192>(q, p, cand, qrow, valid, out, T, C, M,
                                      k, s);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The block class, k > KWARP. Past 1024 keys a warp's sort scratch would take
+// 16 KB (128 KB for a block of 8 warps), so one block of BLOCK_THREADS serves
+// one query slot at a time and the block's shared memory is the query's:
+// - the d2 bits of the query's M candidates go once into a shared slice of M
+//   words where it fits the budget with the keys (else every pass
+//   recomputes them from device memory, through L1 and L2);
+// - the kth smallest tau by the same four 8-bit digit passes from the top,
+//   each a block-wide 256-bin shared histogram and a block scan of it;
+// - the compaction in candidate order, BLOCK_THREADS candidates a step:
+//   every slot below tau and the first k - below at tau, ranked by a scan
+//   of the warps' ballots, as keys (d2 bits << 32 | position), the k
+//   smallest (d2, position) pairs, all unique;
+// - a bitonic network in its all-ascending form: the first step of a merge
+//   of `size` compares i with its mirror i ^ (size - 1), the later ones i
+//   with i + stride, and every comparator puts the smaller key first. Keys
+//   past n then act as +inf without being stored: a comparator that reaches
+//   past n is skipped, so n keys need n slots. Up to SORT_KEYS keys (128
+//   KB) the network runs in shared memory; past that the keys lie in a
+//   device-memory workspace of the wrapper's, each aligned SORT_KEYS tile is
+//   sorted in shared memory, and of every longer merge the steps that span
+//   more than a tile run over device memory, the rest tile by tile.
+// The output is the warp classes': the order the Pallas kernels' k rounds of
+// min and first-argmin emit. No k ceiling is left (n <= min(k, M) keys).
+
+constexpr int KWARP = 1024;              // the warp classes' largest k
+constexpr int BLOCK_THREADS = 256;       // the block class: one query a block
+constexpr int BLOCK_WARPS = BLOCK_THREADS / 32;
+constexpr int SORT_KEYS = 16384;         // keys sorted in shared memory
+
+// The block class's fixed shared scratch (at the start of dynamic memory).
+struct BlockScratch {
+  unsigned hist[256];                    // a digit pass's histogram
+  unsigned wsum[BLOCK_WARPS];            // its scan's warp totals
+  unsigned pick[2];                      // the digit found, the count below
+  int cnt[2][2][BLOCK_WARPS];            // the compaction's warp counts
+};
+constexpr size_t BLOCK_SCRATCH = (sizeof(BlockScratch) + 15) & ~size_t(15);
+
+// The kk-th smallest (1 <= kk <= M) of src(m) over m < M, the whole block
+// together; *below gets how many values are strictly smaller.
+template <class Src>
+__device__ unsigned block_radix_kth(const Src& src, int M, int kk,
+                                    BlockScratch& s, int* below) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned prefix = 0, known = 0;
+  int under = 0;
+#pragma unroll 1
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    s.hist[tid] = 0;
+    __syncthreads();
+    for (int m = tid; m < M; m += BLOCK_THREADS) {
+      const unsigned v = src(m);
+      if ((v & known) == prefix) atomicAdd(&s.hist[(v >> shift) & 255u], 1u);
+    }
+    __syncthreads();
+    const unsigned c = s.hist[tid];
+    unsigned incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned t = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) s.wsum[warp] = incl;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) incl += s.wsum[w];
+    const unsigned want = static_cast<unsigned>(kk);
+    if (incl - c < want && want <= incl) {
+      s.pick[0] = static_cast<unsigned>(tid);
+      s.pick[1] = incl - c;
+    }
+    __syncthreads();
+    const int lo = static_cast<int>(s.pick[1]);
+    prefix |= s.pick[0] << shift;
+    known |= 255u << shift;
+    kk -= lo;
+    under += lo;
+  }
+  *below = under;
+  return prefix;
+}
+
+// Write the n keys of the winners (tau, below from block_radix_kth) to
+// keys[0, n) in candidate order: src(m) the bits, pos(m) the key's low word.
+template <class Src, class Pos>
+__device__ void block_compact(const Src& src, const Pos& pos, int M,
+                              unsigned tau, int n, int below,
+                              unsigned long long* keys, BlockScratch& s) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt_mask = (1u << lane) - 1u;   // lanes below this one
+  int base = 0, eq_left = n - below, par = 0;
+  for (int m0 = 0; m0 < M && base < n; m0 += BLOCK_THREADS, par ^= 1) {
+    const int m = m0 + tid;
+    const unsigned v = m < M ? src(m) : ~0u;
+    const unsigned lt = __ballot_sync(FULL, v < tau);
+    const unsigned eq = __ballot_sync(FULL, v == tau);
+    if (lane == 0) {
+      s.cnt[par][0][warp] = __popc(lt);
+      s.cnt[par][1][warp] = __popc(eq);
+    }
+    __syncthreads();   // the counts of step par are read before par's reuse
+    int lt_pre = __popc(lt & lt_mask), eq_pre = __popc(eq & lt_mask);
+    int lt_all = 0, eq_all = 0;
+#pragma unroll
+    for (int w = 0; w < BLOCK_WARPS; ++w) {
+      const int a = s.cnt[par][0][w], b = s.cnt[par][1][w];
+      if (w < warp) {
+        lt_pre += a;
+        eq_pre += b;
+      }
+      lt_all += a;
+      eq_all += b;
+    }
+    if (v < tau || (v == tau && eq_pre < eq_left))
+      keys[base + lt_pre + min(eq_pre, eq_left)] =
+          (static_cast<unsigned long long>(v) << 32) | pos(m);
+    const int took = min(eq_all, eq_left);
+    base += lt_all + took;
+    eq_left -= took;
+  }
+}
+
+// One step of the all-ascending bitonic network over keys[0, n): the merge
+// of `size`, comparators `stride` apart (the mirror step where stride is
+// size / 2); comparators that reach past n are skipped.
+__device__ __forceinline__ void sort_step(unsigned long long* keys, int n,
+                                          int size, int stride) {
+  const bool mirror = stride == (size >> 1);
+  for (int t = threadIdx.x; t < n; t += BLOCK_THREADS) {
+    const int i = 2 * t - (t & (stride - 1));
+    const int j = mirror ? (i ^ (size - 1)) : i + stride;
+    if (j < n) {
+      const unsigned long long a = keys[i], b = keys[j];
+      if (a > b) {
+        keys[i] = b;
+        keys[j] = a;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int P = 1;
+  while (P < n) P <<= 1;
+  return P;
+}
+
+// Sort keys[0, n) ascending, the whole block together; starts and ends with
+// a barrier.
+__device__ void block_sort(unsigned long long* keys, int n) {
+  const int P = pow2_at_least(n);
+  __syncthreads();
+  for (int size = 2; size <= P; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      sort_step(keys, n, size, stride);
+      __syncthreads();
+    }
+}
+
+// The same network over keys[0, n) in device memory, n > SORT_KEYS: the
+// merges up to SORT_KEYS tile by tile in `tile` (SORT_KEYS shared keys);
+// of each longer merge the steps whose comparators span more than a tile
+// over device memory, then the rest tile by tile.
+__device__ void block_sort_global(unsigned long long* keys, int n,
+                                  unsigned long long* tile) {
+  const int tid = threadIdx.x, P = pow2_at_least(n);
+  for (int t0 = 0; t0 < n; t0 += SORT_KEYS) {
+    const int len = min(SORT_KEYS, n - t0);
+    __syncthreads();
+    for (int i = tid; i < len; i += BLOCK_THREADS) tile[i] = keys[t0 + i];
+    block_sort(tile, len);
+    for (int i = tid; i < len; i += BLOCK_THREADS) keys[t0 + i] = tile[i];
+  }
+  __syncthreads();
+  for (int size = 2 * SORT_KEYS; size <= P; size <<= 1) {
+    int stride = size >> 1;
+    for (; stride >= SORT_KEYS; stride >>= 1) {
+      sort_step(keys, n, size, stride);
+      __syncthreads();
+    }
+    for (int t0 = 0; t0 < n; t0 += SORT_KEYS) {
+      const int len = min(SORT_KEYS, n - t0);
+      for (int i = tid; i < len; i += BLOCK_THREADS) tile[i] = keys[t0 + i];
+      __syncthreads();
+      for (int st = stride; st > 0; st >>= 1) {
+        sort_step(tile, len, size, st);
+        __syncthreads();
+      }
+      for (int i = tid; i < len; i += BLOCK_THREADS) keys[t0 + i] = tile[i];
+      __syncthreads();
+    }
+  }
+}
+
+// The winners of one query over src(m), m < M (M >= 1), kk = min(k, M):
+// their sorted keys in keys[0, n), n returned. `tile` is the shared tile of
+// the device-memory sort (unused with SHARED_SORT).
+template <bool SHARED_SORT, class Src, class Pos>
+__device__ int block_select(const Src& src, const Pos& pos, int M, int kk,
+                            unsigned long long* keys,
+                            unsigned long long* tile, BlockScratch& s) {
+  int below;
+  const unsigned tau = block_radix_kth(src, M, kk, s, &below);
+  const int n = found_count(tau, below, kk);
+  block_compact(src, pos, M, tau, n, below, keys, s);
+  if constexpr (SHARED_SORT)
+    block_sort(keys, n);
+  else
+    block_sort_global(keys, n, tile);
+  return n;
+}
+
+struct SlotPos {
+  __device__ unsigned operator()(int m) const {
+    return static_cast<unsigned>(m);
+  }
+};
+
+// Shared bytes of a block-class launch: the scratch, the bits slice
+// (cached) and the sort's keys (min(k, M) of them, or the tile of the
+// device-memory sort past SORT_KEYS).
+inline size_t block_smem_bytes(int M, int k, bool cached) {
+  const int kk = min(k, M);
+  const size_t keys = kk <= SORT_KEYS ? kk : SORT_KEYS;
+  return BLOCK_SCRATCH + (cached ? static_cast<size_t>(pitch(M)) * 4 : 0) +
+         keys * 8;
+}
+
+inline bool block_cached(int M, int k) {
+  return block_smem_bytes(M, k, true) <= WIDE_BUDGET;
+}
+
+// One block per query slot qi of the T*C (grid-stride): the query's
+// winners sorted, then out.write_block(row, keys, n, qi, k). Without
+// SHARED_SORT the keys go to ws + blockIdx.x * min(k, M) in device memory.
+template <class Out, bool CACHED, bool SHARED_SORT>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+select_block_kernel(const float* __restrict__ q,      // (T,C,3)
+                    const float* __restrict__ p,      // (T,M,3)
+                    const int* __restrict__ cand,     // (T,M)
+                    const int* __restrict__ qrow,     // (T,C)
+                    const int* __restrict__ valid,    // (T,M)
+                    Out out, unsigned long long* __restrict__ ws,
+                    size_t TC, int C, int M, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  BlockScratch& s = *reinterpret_cast<BlockScratch*>(smem);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + BLOCK_SCRATCH);
+  unsigned long long* shared_keys = reinterpret_cast<unsigned long long*>(
+      smem + BLOCK_SCRATCH +
+      (CACHED ? static_cast<size_t>(pitch(M)) * 4 : 0));
+  const int kk = min(k, M);
+  unsigned long long* keys =
+      SHARED_SORT ? shared_keys : ws + blockIdx.x * static_cast<size_t>(kk);
+  for (size_t qi = blockIdx.x; qi < TC; qi += gridDim.x) {
+    const size_t t = qi / C;
+    const GlobalRow row{p + t * M * 3, cand + t * M, valid + t * M};
+    const RowBits<SelectRule, GlobalRow> src{row, q[qi * 3], q[qi * 3 + 1],
+                                             q[qi * 3 + 2],
+                                             qrow[qi]};
+    __syncthreads();   // the last query's bits and keys are read
+    int n;
+    if constexpr (CACHED) {
+      for (int m = threadIdx.x; m < M; m += BLOCK_THREADS) bits[m] = src(m);
+      __syncthreads();
+      n = block_select<SHARED_SORT>(CachedBits{bits}, SlotPos{}, M, kk, keys,
+                                    shared_keys, s);
+    } else {
+      n = block_select<SHARED_SORT>(src, SlotPos{}, M, kk, keys, shared_keys,
+                                    s);
+    }
+    out.write_block(row, keys, n, qi, k);
+  }
+}
+
+// Blocks of a block-class launch whose keys take the device-memory
+// workspace: its min(k, M)-key slices are one a block.
+constexpr int WS_BLOCKS = 264;           // two an SM on the H100's 132
+
+template <class Out, bool CACHED, bool SHARED_SORT>
+int launch_block_variant(const float* q, const float* p, const int* cand,
+                         const int* qrow, const int* valid, Out out,
+                         unsigned long long* ws, size_t TC, int C, int M,
+                         int k, cudaStream_t s) {
+  static bool raised = false;   // above 48 KB needs the attribute
+  const int e = raise_smem(select_block_kernel<Out, CACHED, SHARED_SORT>,
+                           WIDE_BUDGET, raised);
+  if (e) return e;
+  const size_t most = SHARED_SORT ? static_cast<size_t>(0x7fffffff)
+                                  : static_cast<size_t>(WS_BLOCKS);
+  const unsigned grid = static_cast<unsigned>(TC < most ? TC : most);
+  select_block_kernel<Out, CACHED, SHARED_SORT>
+      <<<grid, BLOCK_THREADS, block_smem_bytes(M, k, CACHED), s>>>(
+          q, p, cand, qrow, valid, out, ws, TC, C, M, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the block class (k > KWARP) over the T*C query slots on `stream`;
+// `ws` holds WS_BLOCKS * min(k, M) keys where min(k, M) > SORT_KEYS (else
+// it may be null). Returns cudaGetLastError() (0 = launched).
+template <class Out>
+int launch_select_block(const float* q, const float* p, const int* cand,
+                        const int* qrow, const int* valid, Out out,
+                        unsigned long long* ws, int T, int C, int M, int k,
+                        void* stream) {
+  const size_t TC = static_cast<size_t>(T) * C;
+  if (TC == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool cached = block_cached(M, k);
+  if (min(k, M) <= SORT_KEYS)
+    return cached ? launch_block_variant<Out, true, true>(
+                        q, p, cand, qrow, valid, out, ws, TC, C, M, k, s)
+                  : launch_block_variant<Out, false, true>(
+                        q, p, cand, qrow, valid, out, ws, TC, C, M, k, s);
+  if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return cached ? launch_block_variant<Out, true, false>(
+                      q, p, cand, qrow, valid, out, ws, TC, C, M, k, s)
+                : launch_block_variant<Out, false, false>(
+                      q, p, cand, qrow, valid, out, ws, TC, C, M, k, s);
+}
+
+// The selects' entry: the warp classes up to k = KWARP, else the block
+// class (`ws` as launch_select_block takes it). Returns a CUDA error code
+// (0 = launched).
+template <class Out>
+int launch_select_any(const float* q, const float* p, const int* cand,
+                      const int* qrow, const int* valid, Out out, void* ws,
+                      int T, int C, int M, int k, void* stream) {
+  if (k < 1 || C < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (k > KWARP)
+    return launch_select_block(q, p, cand, qrow, valid, out,
+                               static_cast<unsigned long long*>(ws), T, C, M,
+                               k, stream);
+  return launch_select(q, p, cand, qrow, valid, out, T, C, M, k, stream);
 }
 
 }  // namespace knn_warp

@@ -28,21 +28,20 @@
 // per cell row stages the row (xyz, id, valid) in shared memory, or streams
 // it from device memory past its scratch class's budget; one warp per
 // query slot computes each d2 once, finds the kth by the radix select,
-// compacts and sorts the winner keys (k <= 1024; the scratch class of k as
-// in select_rows.cu). Only the emitter differs: each winner's xyz comes
+// compacts and sorts the winner keys (up to k = 1024 the scratch class of k,
+// past it the block class, as in select_rows.cu). Only the emitter differs: each winner's xyz comes
 // from the staged row in shared memory (not read back from device
 // memory), and the lanes write the slot's contiguous (k, 3) coordinates
-// and its k distances with consecutive lanes on consecutive floats. Every
-// output offset is size_t: 1M query slots at k = 1024 write 12.9 GB of
-// coordinates.
+// and its k distances with consecutive lanes on consecutive floats (the
+// block class's threads likewise; its coordinates come from device memory).
+// Every output offset is size_t: 1M query slots at k = 1024 write 12.9 GB
+// of coordinates.
 
 #include "knn_warp.cuh"
 
 namespace {
 
 using namespace knn_warp;
-
-constexpr int KMAX = 1024;
 
 // dist[j] = sqrt(d2) and nbr[j, 0:3] = the winner's xyz from `row`; missing
 // winners read (3e38, the xyz of slot 0).
@@ -63,6 +62,21 @@ struct CoordsOut {
       o[e] = a == 0 ? row.x(w) : (a == 1 ? row.y(w) : row.z(w));
     }
   }
+  // The same outputs from the block class: every thread of the block.
+  template <class Row>
+  __device__ void write_block(const Row& row, const unsigned long long* keys,
+                              int n, size_t qi, int k) const {
+    const float missing = __fsqrt_rn(SENT);
+    for (int j = threadIdx.x; j < k; j += BLOCK_THREADS)
+      dist[qi * k + j] = j < n ? key_dist(keys[j]) : missing;
+    float* o = nbr + qi * k * 3;
+    for (int e = threadIdx.x; e < 3 * k; e += BLOCK_THREADS) {
+      const int j = e / 3;
+      const int a = e - 3 * j;
+      const int w = j < n ? key_pos(keys[j]) : 0;
+      o[e] = a == 0 ? row.x(w) : (a == 1 ? row.y(w) : row.z(w));
+    }
+  }
 };
 
 }  // namespace
@@ -70,13 +84,12 @@ struct CoordsOut {
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // Shapes: q (T,C,3), p (T,M,3) float32; cand (T,M), qrow (T,C), valid (T,M)
 // int32; outputs dist (T,C,k), nbr (T,C,k,3) float32; all contiguous.
-// Requires C >= 1 (the wrapper keeps C <= 4096), M >= 1 and 1 <= k <= 1024
-// (checked by the wrapper).
+// Requires C >= 1, M >= 1 and k >= 1 (checked by the wrapper); `ws` as
+// select_rows.cu's entry points take it.
 extern "C" int pct_select_coords(const float* q, const float* p, const int* cand,
                                  const int* qrow, const int* valid, float* dist,
-                                 float* nbr, int T, int C, int M, int k,
-                                 void* stream) {
-  if (k < 1 || k > KMAX) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_select(q, p, cand, qrow, valid, CoordsOut{dist, nbr}, T, C, M,
-                       k, stream);
+                                 float* nbr, void* ws, int T, int C, int M,
+                                 int k, void* stream) {
+  return launch_select_any(q, p, cand, qrow, valid, CoordsOut{dist, nbr}, ws,
+                           T, C, M, k, stream);
 }

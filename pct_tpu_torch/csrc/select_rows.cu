@@ -36,19 +36,21 @@
 // those <= k keys (d2 bits << 32 | m) with a bitonic network in the warp's
 // scratch, and writes them with consecutive lanes on consecutive j. That is
 // the set and the order the Pallas kernels' rounds of min and first-argmin
-// emit. k runs to 1024: the warp's scratch is a class chosen by k (1 KB up
-// to k = 128, as before; 2 / 4 / 8 KB up to 256 / 512 / 1024, the sort's
-// keys), and so is the shared-memory budget under which the row is staged.
-// Every output offset is size_t (qi * k): 1M query slots at k = 1024 write
-// 4 GB a tensor.
+// emit. Up to k = 1024 the warp's scratch is a class chosen by k (1 KB up
+// to k = 128; 2 / 4 / 8 KB up to 256 / 512 / 1024, the sort's keys), and
+// so is the shared-memory budget under which the row is staged. Past 1024
+// the block class (knn_warp.cuh's select_block_kernel) gives a whole block
+// to one query slot: the same radix select and compaction block-wide, the
+// sort in shared memory up to 16,384 keys and past that over a
+// device-memory workspace, so any k runs, as the Pallas kernels take any k.
+// Every output offset is size_t (qi * k): 1M query slots at k = 2048 write
+// 8.4 GB a tensor.
 
 #include "knn_warp.cuh"
 
 namespace {
 
 using namespace knn_warp;
-
-constexpr int KMAX = 1024;
 
 // dist[j] = sqrt(d2) and the winner's id cand[m] (ROWS) or slot m, with
 // consecutive lanes on consecutive j; missing winners read (3e38, m = 0).
@@ -71,6 +73,23 @@ struct IdsOut {
       out[qi * k + j] = ROWS ? row.id(w) : w;
     }
   }
+  // The same outputs from the block class: every thread of the block.
+  template <class Row>
+  __device__ void write_block(const Row& row, const unsigned long long* keys,
+                              int n, size_t qi, int k) const {
+    const float missing = __fsqrt_rn(SENT);
+    for (int j = threadIdx.x; j < k; j += BLOCK_THREADS) {
+      float d = missing;
+      int w = 0;
+      if (j < n) {
+        const unsigned long long key = keys[j];
+        w = key_pos(key);
+        d = key_dist(key);
+      }
+      dist[qi * k + j] = d;
+      out[qi * k + j] = ROWS ? row.id(w) : w;
+    }
+  }
 };
 
 }  // namespace
@@ -78,30 +97,33 @@ struct IdsOut {
 // Both launch on `stream` and return cudaGetLastError() (0 = launched).
 // Shapes: q (T,C,3), p (T,M,3) float32; cand (T,M), qrow (T,C), valid (T,M)
 // int32; outputs dist (T,C,k) float32 and rows / pos (T,C,k) int32; all
-// contiguous. Require C >= 1 (the wrapper keeps C <= 4096: the warps take a
-// row's query slots in turn, so nothing here bounds C), M >= 1 and
-// 1 <= k <= 1024 (checked by the wrapper).
+// contiguous. Require C >= 1, M >= 1 and k >= 1 (checked by the wrapper).
+// `ws`: past k = 1024 where min(k, M) > 16,384, the device-memory sort's
+// workspace of min(T*C, WS_BLOCKS) * min(k, M) int64 keys; else null.
 extern "C" int pct_select_rows(const float* q, const float* p, const int* cand,
                                const int* qrow, const int* valid, float* dist,
-                               int* rows, int T, int C, int M, int k,
+                               int* rows, void* ws, int T, int C, int M, int k,
                                void* stream) {
-  if (k < 1 || k > KMAX) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_select(q, p, cand, qrow, valid, IdsOut<true>{dist, rows}, T, C,
-                       M, k, stream);
+  return launch_select_any(q, p, cand, qrow, valid, IdsOut<true>{dist, rows},
+                           ws, T, C, M, k, stream);
 }
 
 extern "C" int pct_select_pos(const float* q, const float* p, const int* cand,
                               const int* qrow, const int* valid, float* dist,
-                              int* pos, int T, int C, int M, int k,
+                              int* pos, void* ws, int T, int C, int M, int k,
                               void* stream) {
-  if (k < 1 || k > KMAX) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_select(q, p, cand, qrow, valid, IdsOut<false>{dist, pos}, T, C,
-                       M, k, stream);
+  return launch_select_any(q, p, cand, qrow, valid, IdsOut<false>{dist, pos},
+                           ws, T, C, M, k, stream);
 }
 
-// The layout select_kernel takes at (C, M, k): the dynamic shared bytes a
-// block, positive where the row is staged, negative where it is streamed.
+// The layout the selects take at (C, M, k): the dynamic shared bytes a
+// block, positive where the bits (the block class) or the row (the warp
+// classes) are staged, negative where every pass reads device memory.
 extern "C" long long pct_select_layout(int C, int M, int k) {
-  if (C < 1 || M < 1 || k < 1 || k > KMAX) return 0;
+  if (C < 1 || M < 1 || k < 1) return 0;
+  if (k > KWARP)
+    return block_cached(M, k)
+               ? static_cast<long long>(block_smem_bytes(M, k, true))
+               : -static_cast<long long>(block_smem_bytes(M, k, false));
   return select_layout(C, M, k);
 }

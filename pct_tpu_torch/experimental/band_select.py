@@ -35,18 +35,17 @@ are the same in both modes.
 
 On CUDA tensors the hand-written kernel ``csrc/band_select.cu`` runs
 (built with nvcc at first use; ``knn_band_select.launches`` counts its
-launches): one warp per computed query slot on ``csrc/knn_warp.cuh``,
-over a fixed-size tile of the block's run hulls, its scratch the
-class of k that ``ops.select``'s kernels use. On CPU tensors the
-plain PyTorch version ``band_select_plain`` runs. Both do the same IEEE
+launches) over a fixed-size tile of the block's run hulls: up to k =
+1024 one warp per computed query slot on ``csrc/knn_warp.cuh``, its
+scratch the class of k that ``ops.select``'s kernels use; past 1024 the
+block class, a whole block on one query slot. On CPU tensors the plain
+PyTorch version ``band_select_plain`` runs. Both do the same IEEE
 float32 operations in the same order and agree bit for bit on the card.
+Any k and any bc·cap run, as in the JAX package.
 
-Documented divergences from the JAX package: k is limited to
-``KMAX`` = 1024 (the keys a warp sorts; the Pallas kernel has no limit),
-a block holds at most ``MAX_BLOCK_QUERIES`` = 1024 query slots, and the
-``counts`` mode, which the JAX kernel does not have. ``MAX_BAND`` = 1024
-is the JAX package's DMA window, kept so both packages accept and refuse
-the same ``band``.
+Documented divergence from the JAX package: the ``counts`` mode, which
+the JAX kernel does not have. ``MAX_BAND`` = 1024 is the JAX package's
+DMA window, kept so both packages accept and refuse the same ``band``.
 """
 
 from __future__ import annotations
@@ -57,10 +56,9 @@ import functools
 import torch
 
 from pct_tpu_torch.ops import build
-from pct_tpu_torch.ops.select import KMAX, MISSING_D2, _emit_rows, _plain
+from pct_tpu_torch.ops.select import MISSING_D2, _emit_rows, _plain
 
 MAX_BAND = 1024          # longest band (the JAX package's DMA window)
-MAX_BLOCK_QUERIES = 1024  # bc·cap query slots a block (the kernel's limit)
 NINE = 9
 _PLAIN_PAIRS = 1 << 24   # (query slots × 9·band) elements per plain chunk
 
@@ -128,14 +126,13 @@ def band_select_plain(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base,
 
 def _check(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo_edge,
            hi_edge, k, bc, cap, band, counts):
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"k={k} outside [1, {KMAX}]: the band select keeps "
-                         f"at most {KMAX} neighbors")
+    if k < 1:
+        raise ValueError(f"k={k} must be positive")
     if not 1 <= band <= MAX_BAND:
         raise ValueError(f"band {band} outside [1, {MAX_BAND}]")
-    if bc < 1 or cap < 1 or bc * cap > MAX_BLOCK_QUERIES:
-        raise ValueError(f"bc*cap = {bc}*{cap} query slots a block outside "
-                         f"[1, {MAX_BLOCK_QUERIES}]")
+    if bc < 1 or cap < 1:
+        raise ValueError(f"bc*cap = {bc}*{cap} query slots a block: bc and "
+                         "cap must be positive")
     nb = bs.shape[0]
     q = bc * cap
     shapes = (("px", px, (px.shape[0],), torch.float32),
@@ -185,7 +182,7 @@ def knn_band_select(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
     (NB,bc) int32 row of each cell's first query; lo_edge/hi_edge
     (NB,bc,3) float32 window edges (±1e30 at grid boundaries); counts
     (NB,bc) int32 points a cell, or None (every slot computed; see the
-    module docstring). 1 <= k <= 1024, bc·cap <= 1024, band <= 1024.
+    module docstring). Any k >= 1 and bc·cap; band <= 1024.
     CUDA tensors launch ``csrc/band_select.cu``; CPU tensors run
     ``band_select_plain``.
     """

@@ -16,23 +16,24 @@ The three wrappers differ only in what they emit beside the distances:
 
 Missing slots carry distance sqrt(3e38) and position 0 (so the
 coordinates of candidate slot 0, and the id ``cand[t, 0]``); callers
-test ``found = dists < 1e18``. The selects keep at most ``KMAX`` = 1024
-neighbors (the Pallas kernels take any k); above it every wrapper
-raises ``ValueError``. 1024 is where the kernels' per-warp scratch
-stops: 8 KB of sort keys a warp, 64 KB for a block of 8 warps, before
-the row is staged. Library kNN, the staged pipeline, the implicit
-fallback and ``compat.estimate_curvature`` reach the selects at any k
-up to it.
+test ``found = dists < 1e18``. The selects take any k and any number
+of query slots a cell row, as the Pallas kernels do; library kNN, the
+staged pipeline, the implicit fallback, the list engine and
+``compat.estimate_curvature`` reach them at any k.
 
 On CUDA tensors the hand-written kernels run (``csrc/select_coords.cu``
-and ``csrc/select_rows.cu``, one design in ``csrc/knn_warp.cuh``: one
-block per cell row stages the row, one warp per query slot computes d²
-once, radix-selects the kth and sorts the winners, and only the
-emitted outputs differ; built with nvcc at first use; the warp's
-scratch and the block's shared-memory budget are classes chosen by k,
-``select_layout`` tells which layout a shape takes); on CPU tensors
-the plain PyTorch versions below, which do the same IEEE float32
-operations in the same order, so the two agree bit for bit on the card.
+and ``csrc/select_rows.cu``, one design in ``csrc/knn_warp.cuh``; built
+with nvcc at first use; only the emitted outputs differ). Up to k =
+1024 one block per cell row stages the row and one warp per query slot
+computes d² once, radix-selects the kth and sorts the winners, the
+warp's scratch and the block's shared-memory budget a class chosen by
+k. Past 1024 (the block class) a whole block serves one query slot: the
+same select block-wide, the winners sorted in shared memory up to
+16,384 of them and past that over a device-memory workspace that the
+wrapper allocates (``WS_BLOCKS`` blocks' keys). ``select_layout`` tells
+which layout a shape takes. On CPU tensors the plain PyTorch versions
+below run, which do the same IEEE float32 operations in the same order,
+so the two agree bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -45,17 +46,24 @@ import torch
 from pct_tpu_torch.ops import build
 
 MISSING_D2 = 3.0e38
-KMAX = 1024         # the winner keys a warp sorts (8 KB of its scratch)
-MAX_QUERIES = 4 * KMAX  # query slots of a cell row: the probes cap a
-                        # bucket's capacity at max(256, 4k); one block a
-                        # row, its warps take the slots in turn
+WARP_KMAX = 1024    # the warp classes' largest k; past it the block class
+SORT_KEYS = 16384   # winners the block class sorts in shared memory
+WS_BLOCKS = 264     # blocks of a launch whose winners exceed SORT_KEYS,
+                    # each sorting in its own workspace slice
 _PLAIN_PAIRS = 1 << 24  # (rows × C × max(M, k)) elements a plain chunk
 
 
 def _plain_block(qpts, cpts, cand, qrow, valid, k: int):
     """The Pallas kernels' k rounds of min, first-argmin and mask-out
     over one (T,C,M) distance block -> (dists (T,C,k), pos (T,C,k)
-    int64)."""
+    int64).
+
+    The rounds emit the usable slots in ascending (d², m) order, then,
+    once every slot reads 3e38 (the taken ones too), (3e38, position 0)
+    in every round left. That order comes here from one top-k of the
+    int64 keys (d² bits << 32 | m), since non-negative float32 values
+    order as their bits: a winner at or above 3e38 reads (3e38, 0), and
+    the outputs are the rounds' bit for bit at any k."""
     T, C, _ = qpts.shape
     M = cpts.shape[1]
     dx = qpts[:, :, None, 0] - cpts[:, None, :, 0]
@@ -64,23 +72,26 @@ def _plain_block(qpts, cpts, cand, qrow, valid, k: int):
     d2 = (dx * dx + dy * dy) + dz * dz                  # (T, C, M)
     ok = (valid[:, None, :] != 0) & (cand[:, None, :] != qrow[:, :, None])
     d2 = torch.where(ok, d2, MISSING_D2)
-    iota = torch.arange(M, dtype=torch.int32, device=d2.device)
-    dists = d2.new_empty((T, C, k))
-    pos = torch.empty((T, C, k), dtype=torch.int64, device=d2.device)
-    for j in range(k):
-        mn = d2.min(dim=-1, keepdim=True).values
-        am = torch.where(d2 == mn, iota, M).min(dim=-1, keepdim=True).values
-        dists[..., j] = torch.sqrt(torch.clamp_min(mn[..., 0], 0.0))
-        pos[..., j] = am[..., 0]
-        d2.scatter_(-1, am.long(), MISSING_D2)
-    return dists, pos
+    iota = torch.arange(M, dtype=torch.int64, device=d2.device)
+    keys = (d2.view(torch.int32).to(torch.int64) << 32) | iota
+    del d2, dx, dy, dz
+    kk = min(k, M)
+    top = torch.topk(keys, kk, dim=-1, largest=False, sorted=True).values
+    del keys
+    won = (top >> 32).to(torch.int32).view(torch.float32)
+    hit = won < MISSING_D2
+    d2k = won.new_full((T, C, k), MISSING_D2)
+    d2k[..., :kk] = torch.where(hit, won, MISSING_D2)
+    pos = torch.zeros((T, C, k), dtype=torch.int64, device=won.device)
+    pos[..., :kk] = torch.where(hit, top & 0xFFFFFFFF, 0)
+    return torch.sqrt(torch.clamp_min(d2k, 0.0)), pos
 
 
 def _plain(qpts, cpts, cand, qrow, valid, k: int, emit):
     """Plain version of a select, in chunks of cell rows that bound the
     (rows, C, M) distance block; ``emit(pos, cpts, cand)`` turns each
     chunk's winner positions into the wrapper's second output. Rows with
-    no valid candidate (empty member-table slots) skip the rounds: every
+    no valid candidate (empty member-table slots) skip the select: every
     slot of theirs is missing, (sqrt(3e38), position 0)."""
     T, C, _ = qpts.shape
     live = valid.any(dim=1).nonzero().flatten()
@@ -155,19 +166,29 @@ def _check(qpts, cpts, cand, qrow, valid, k):
     devs = {a.device for a in (qpts, cpts, cand, qrow, valid)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"k={k} outside [1, {KMAX}]: the select keeps at "
-                         f"most {KMAX} neighbors")
-    if not 1 <= C <= MAX_QUERIES:
-        raise ValueError(f"{C} query slots outside [1, {MAX_QUERIES}]")
+    if k < 1:
+        raise ValueError(f"k={k} must be positive")
+    if C < 1:
+        raise ValueError("qpts needs at least one query slot")
 
 
 @functools.cache
 def _kernel(source: str, symbol: str):
     fn = getattr(build.load(source), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _workspace(T: int, C: int, M: int, k: int, dev):
+    """The block class's device-memory sort workspace, where a query's
+    min(k, M) winners exceed SORT_KEYS: one slice of min(k, M) int64 keys
+    for each of min(T·C, WS_BLOCKS) blocks; else None."""
+    kk = min(k, M)
+    if k <= WARP_KMAX or kk <= SORT_KEYS:
+        return None
+    return torch.empty(min(T * C, WS_BLOCKS) * kk, dtype=torch.int64,
+                       device=dev)
 
 
 def _select(wrapper, source: str, symbol: str, plain, win_dtype, win_tail,
@@ -191,12 +212,14 @@ def _select(wrapper, source: str, symbol: str, plain, win_dtype, win_tail,
     wins = torch.empty((T, C, k) + win_tail, dtype=win_dtype, device=dev)
     if T == 0:
         return dists, wins
+    ws = _workspace(T, C, M, k, dev)
     fn = _kernel(source, symbol)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(qpts.data_ptr(), cpts.data_ptr(), cand.data_ptr(),
                  qrow.data_ptr(), valid.data_ptr(), dists.data_ptr(),
-                 wins.data_ptr(), T, C, M, k, stream)
+                 wins.data_ptr(), None if ws is None else ws.data_ptr(),
+                 T, C, M, k, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
@@ -212,7 +235,7 @@ def knn_select_coords(qpts: torch.Tensor, cpts: torch.Tensor,
 
     ``cand`` (T,M) int32 candidate ids, ``qrow`` (T,C) int32 query ids
     (a candidate equal to the query's id is itself and is skipped),
-    ``valid`` (T,M) int32 nonzero where the slot is real; 1 <= k <= 1024.
+    ``valid`` (T,M) int32 nonzero where the slot is real; any k >= 1.
     CUDA tensors launch the kernel (``knn_select_coords.launches`` counts
     launches); CPU tensors run ``select_coords_plain``.
     """
@@ -252,8 +275,10 @@ def select_layout(C: int, M: int, k: int) -> int:
     ``csrc/select_rows.cu``): the dynamic shared bytes a block, positive
     where the row is staged in shared memory, negative where each pass
     re-reads it from device memory. k <= 128 keeps the 1 KB scratch class
-    and its 100 KB budget; larger k takes 2, 4 or 8 KB a warp under the
-    card's 227 KB a block."""
+    and its 100 KB budget; k up to 1024 takes 2, 4 or 8 KB a warp under
+    the card's 227 KB a block; past 1024 the block class stages one
+    query's d² bits beside its sort keys (min(k, M), or a 16,384-key tile
+    of the device-memory sort) under the same 227 KB."""
     fn = build.load("select_rows").pct_select_layout
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong

@@ -40,7 +40,6 @@ from pct_tpu_torch.neighbors.cellknn import (
 )
 from pct_tpu_torch.neighbors.grid import GridIndex, build_grid, estimate_cell_size
 from pct_tpu_torch.neighbors.knn import knn_cloud_grid
-from pct_tpu_torch.ops.select import KMAX
 from pct_tpu_torch.pipeline.curvature_pipeline import (
     neighborhood_curvature,
     pointwise_curvature,
@@ -88,10 +87,6 @@ def _check_slice(k: int, method: str, engine: str | None = None):
         raise ValueError("engine='moments' supports method='explicit' only")
     if k < 1:
         raise ValueError(f"k={k} must be positive")
-    if engine == "list" and k > KMAX:
-        raise ValueError(
-            f"k={k}: the list engine's select keeps at most {KMAX} "
-            "neighbors; larger k takes engine='moments'")
 
 
 def _fused_rows(grid: GridIndex, k: int, max_cells: int, bucket_spec,
@@ -155,7 +150,7 @@ def fused_curvature(points: torch.Tensor, num_points: int,
     ``capacity`` and ``cand_cap`` are ignored with a ``bucket_spec``.
     ``method`` is "explicit" or
     "implicit" (``implicit_mode`` "exact" or "reference");
-    ``engine`` is "list" (k <= 1024) or "moments" (explicit only).
+    ``engine`` is "list" or "moments" (explicit only).
     ``split=(cap, factor)`` virtual-splits cells to <= cap
     queries a row (``split_cells``); the spec must then come from
     ``probe_grid_buckets(split_to=cap)``, which returns the factor. No

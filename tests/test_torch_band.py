@@ -241,8 +241,47 @@ def test_band_select_counts_fill_padding_slots(setup):
     assert one.sum() == (counts == 1).sum() and (got[0][one] < 1e18).all()
 
 
+def numpy_band(ops, k, bc, cap, band):
+    """The band select in numpy float32 (the module docstring's rule):
+    each query slot's window sorted by (d², concatenated position),
+    stably -> (dists (S,k) float32 through torch's square root, as the
+    port takes it on the CPU, rows (S,k) int32)."""
+    px, py, pz, bs, rs_rel, run_len, qpts, qrow_base = (
+        a.numpy() for a in ops[:8])
+    nb, npad, m = bs.shape[0], px.shape[0], 9 * band
+    g = bs[:, :, None] + np.arange(band)                     # (nb, 9, band)
+    gi = np.clip(g, 0, npad - 1)
+    inside = (g >= 0) & (g < npad)
+    c = [np.where(inside, a[gi], np.float32(0)).reshape(nb, 1, 1, m)
+         for a in (px, py, pz)]
+    q = qpts.reshape(nb, bc, cap, 3)
+    dx, dy, dz = (q[..., a, None] - c[a] for a in range(3))
+    d2 = (dx * dx + dy * dy) + dz * dz                       # (nb,bc,cap,m)
+    p = np.arange(band)
+    run = ((p >= rs_rel[..., None]) & (p < (rs_rel + run_len)[..., None]))
+    qrow = qrow_base[..., None] + np.arange(cap)
+    ok = (run.reshape(nb, bc, 1, m) & (g.reshape(nb, 1, 1, m)
+                                       != qrow[..., None])
+          & (d2 < np.float32(3e38)))
+    masked = np.where(ok, d2, np.float32(3e38)).reshape(nb * bc * cap, m)
+    order = np.argsort(masked, -1, kind="stable")[:, :k]
+    want = np.full((len(masked), k), np.float32(3e38))
+    want[:, :order.shape[1]] = np.take_along_axis(masked, order, -1)
+    found = want < 1e38
+    flat = np.repeat(g.reshape(nb, m), bc * cap, axis=0)
+    rows = np.repeat(bs[:, :1], bc * cap, axis=0).repeat(k, 1)
+    rows[:, :order.shape[1]] = np.where(
+        found[:, :order.shape[1]], np.take_along_axis(flat, order, -1),
+        rows[:, :order.shape[1]])
+    return torch.sqrt(torch.from_numpy(want)).numpy(), rows.astype(np.int32)
+
+
 @pytest.mark.parametrize("case", ["band", "k", "queries", "counts"])
 def test_band_limits_raise(case):
+    """A band past the JAX package's window and malformed counts raise,
+    as in the JAX package. k = 1025 (past the warp classes) and bc·cap =
+    1032 query slots a block (past the kernel's old 1024) run, as they do
+    in the JAX package, and give the numpy sort of each slot's window."""
     pts = _cloud("jitter")
     gt = build_grid(torch.from_numpy(pts), N, torch.tensor(np.float32(0.2)))
     cells, cap, _, _ = cellknn.probe_grid(gt)
@@ -252,18 +291,23 @@ def test_band_limits_raise(case):
             knn_cellwise_band(gt, cells, blocks, K, 128, bc=BC)
         assert default_band(BC, 128) > MAX_BAND
         return
-    ops = band_operands(gt, cells, blocks, cap, BC, default_band(BC, cap))[0]
-    if case == "k":
-        with pytest.raises(ValueError, match="at most 1024"):
-            knn_band_select(*ops, k=1025, bc=BC, cap=cap,
-                            band=default_band(BC, cap))
-    elif case == "counts":
+    if case == "counts":
+        ops = band_operands(gt, cells, blocks, cap, BC,
+                            default_band(BC, cap))[0]
         nb = ops[3].shape[0]
         for bad in (torch.zeros((nb, BC), dtype=torch.int64),
                     torch.zeros((nb, BC + 1), dtype=torch.int32)):
             with pytest.raises(ValueError, match="counts must be"):
                 knn_band_select(*ops, k=K, bc=BC, cap=cap,
                                 band=default_band(BC, cap), counts=bad)
-    else:
-        with pytest.raises(ValueError, match="query slots a block"):
-            knn_band_select(*ops, k=K, bc=BC, cap=129, band=MAX_BAND)
+        return
+    k, cap = (1025, cap) if case == "k" else (K, 129)
+    band = default_band(BC, cap) if case == "k" else MAX_BAND
+    ops = band_operands(gt, cells, blocks[:16 * BC], cap, BC, band)[0]
+    if case == "queries":
+        assert BC * cap > 1024
+    d, r, _ = knn_band_select(*ops, k=k, bc=BC, cap=cap, band=band)
+    want_d, want_r = numpy_band(ops, k, BC, cap, band)
+    np.testing.assert_array_equal(d.numpy(), want_d)
+    np.testing.assert_array_equal(r.numpy(), want_r)
+    assert (d < 1e18).any()

@@ -262,14 +262,16 @@ def test_estimate_curvature_matches_jax(torus_1500, k_fraction):
 
 
 def test_estimate_curvature_refuses_past_the_selects(torus_1500):
-    """Past 128 neighbors the selects run: ``max_neighbors=200`` at
-    k_fraction 0.2 (k = 200) matches the JAX package by the rule above,
-    with the repair's bound (most rows of a 1500-point cloud at k = 200
-    go to brute force); 1025, past the selects' 1024, raises."""
+    """Nothing the JAX package accepts is refused. Past 128 neighbors the
+    selects run: ``max_neighbors=200`` at k_fraction 0.2 (k = 200)
+    matches the JAX package by the rule above, with the repair's bound
+    (most rows of a 1500-point cloud at k = 200 go to brute force). And
+    ``max_neighbors=5000`` at the default fraction, which the port once
+    refused above 1024 whatever k it would use, runs at the JAX
+    package's k = min(max(1500·0.025, 3), 5000, 1499) = 37 and matches
+    it."""
     assert _estimate_parity(torus_1500, 0.2, 200, repair_bound=True) == 200
-    with pytest.raises(ValueError, match="1024"):
-        compat.estimate_curvature(torus_1500, max_neighbors=1025,
-                                  device="cpu")
+    assert _estimate_parity(torus_1500, 0.025, 5000) == 37
 
 
 def test_shapes_scale_and_ply_match_jax(tmp_path, torus_1500):

@@ -170,6 +170,23 @@ IDS_CASES = {
     "C4096_k200": (1, 4096, 300, 200, {}),
     "under_k_k256": (4, 32, 900, 256, {"p_valid": 0.05}),
     "lattice_k200": (4, 48, 2136, 200, {"lattice": True}),
+    # past 1024 neighbors, the block class: its first k, k = 1536 and 2048
+    # at the 1M torus's widths, lattice ties at the kth, under-k and
+    # all-invalid rows, fewer slots than k, C = 1, the streamed source
+    # past the 227 KB budget, and past 16,384 winners the device-memory
+    # sort (its tile sort alone where under k)
+    "block_k1025": (3, 37, 1100, 1025, {}),
+    "block_k1536_M5000": (2, 24, 5000, 1536, {}),
+    "block_k2048_M9500": (2, 16, 9500, 2048, {}),
+    "block_lattice_k2048": (2, 24, 4000, 2048, {"lattice": True}),
+    "block_under_k_k1100": (4, 16, 3000, 1100, {"p_valid": 0.2}),
+    "block_all_invalid_k1100": (4, 8, 2000, 1100, {"empty": True}),
+    "block_M_below_k_k2048": (3, 8, 1100, 2048, {}),
+    "block_C1_k4096": (4, 1, 6000, 4096, {}),
+    "block_streamed_M60000_k2048": (1, 3, 60000, 2048, {}),
+    "block_global_sort_k20000": (1, 3, 24000, 20000, {}),
+    "block_global_sort_under_k": (1, 2, 24000, 20000, {"p_valid": 0.5}),
+    "block_streamed_global_sort": (1, 2, 30000, 20000, {}),
 }
 
 
@@ -212,6 +229,12 @@ COORDS_CASES = {
     "all_invalid_k20": (6, 24, 232, 20, {"empty": True}),
     "lattice_k20": (16, 16, 232, 20, {"lattice": True}),
     "lattice_k100": (8, 48, 1064, 100, {"lattice": True}),
+    # past 1024 neighbors, the block class
+    "block_k1025": (3, 37, 1100, 1025, {}),
+    "block_lattice_k2048": (2, 24, 4000, 2048, {"lattice": True}),
+    "block_under_k_k1100": (4, 16, 3000, 1100, {"p_valid": 0.2}),
+    "block_streamed_M60000_k2048": (1, 3, 60000, 2048, {}),
+    "block_global_sort_k20000": (1, 2, 24000, 20000, {}),
 }
 
 
@@ -463,6 +486,17 @@ BAND_CASES = {
     "k256_q_odd": (4, 2, 37, 256, 256, {}),
     "k1024": (2, 8, 16, 1024, 1024, {}),
     "under_k_k200": (4, 8, 8, 256, 200, {"sparse": True}),
+    # past 1024 neighbors, the block class: its first k, k above every
+    # window (9 * 256 positions), a hull past the tile, queries over the
+    # whole 9 * 1024 window, bc * cap past the old 1024 slots a block (in
+    # a warp class too)
+    "k1025": (4, 8, 16, 1024, 1025, {}),
+    "k2500_q_odd": (3, 2, 37, 256, 2500, {}),
+    "hull_past_tile_k1100": (4, 8, 16, 1024, 1100, {"runs": "wide"}),
+    "long_runs_k1100": (2, 4, 8, 224, 1100, {"runs": "long"}),
+    "under_k_k1100": (4, 8, 8, 256, 1100, {"sparse": True}),
+    "q1280_k20": (2, 8, 160, 1024, 20, {}),
+    "q1280_k1100": (2, 8, 160, 1024, 1100, {}),
 }
 
 
@@ -510,16 +544,31 @@ def test_band_select_kernel_bit_identical(cuda, case, mode):
     (1144, 11360, 1024, False),  # its largest k=1024 bucket
     (8, 5000, 1024, False),     # the 8 KB class past the card's 227 KB
     (1, 9000, 1024, True),      # one warp: 8 KB + 24 B a slot fit
+    (2300, 22700, 2048, True),  # the block class: bits and keys fit
+    (8, 60000, 2048, False),    # its bits past the budget: streamed
+    (3, 24000, 20000, True),    # a 16,384-key tile beside the bits
+    (3, 30000, 20000, False),   # past it
+    (4, 1000, 4096, True),      # min(k, M) = M keys
 ])
 def test_select_layout_classes(cuda, C, M, k, cached):
-    """The layout each scratch class takes (knn_warp.cuh's
-    select_layout): 1 KB a warp up to k = 128 under a 100 KB budget,
-    else 8·P bytes under the card's 227 KB a block."""
+    """The layout each class takes (knn_warp.cuh's select_layout): 1 KB
+    a warp up to k = 128 under a 100 KB budget, else 8·P bytes under the
+    card's 227 KB a block; past k = 1024 the block class: its scratch,
+    the query's bits and min(k, M) keys (at most a 16,384-key tile) under
+    the same 227 KB."""
     from pct_tpu_torch.ops.select import select_layout
 
+    mp = (M + 3) & ~3
+    if k > 1024:
+        keys = 8 * min(k, M, 16384)
+        scratch = (4 * (256 + 8 + 2 + 32) + 15) & ~15
+        staged = scratch + 4 * mp + keys
+        assert (staged <= 227 * 1024) == cached
+        assert select_layout(C, M, k) == (staged if cached
+                                          else -(scratch + keys))
+        return
     W = min(8, C)
     scr = 1024 if k <= 128 else 8 * max(256, 1 << (k - 1).bit_length())
-    mp = (M + 3) & ~3
     staged = W * scr + W * mp * 4 + mp * 20
     assert (staged <= (100 if k <= 128 else 227) * 1024) == cached
     assert select_layout(C, M, k) == (staged if cached else -W * scr)

@@ -14,7 +14,8 @@
     atol 1e-6, id sets equal wherever the kth neighbor is not nearly
     tied with the next.
 (d) ``knn_grid`` and ``ball_grid`` against the JAX ones.
-(e) The list limit: k = 1024 runs, k = 1025 raises.
+(e) Past the warp classes' 1024: k = 1024 and k = 1025 run and give the
+    smallest usable distances (the selects take any k).
 (f) ``lax.top_k``'s tie order: on an integer lattice, where every
     distance is exact in both packages and ties sit at the kth distance
     and among masked inf slots, ``knn_grid`` (rings 1 and 2),
@@ -51,7 +52,6 @@ from pct_tpu_torch.neighbors import (
 from pct_tpu_torch.neighbors import cellknn
 from pct_tpu_torch.neighbors.grid import build_grid
 from pct_tpu_torch.ops.select import (
-    KMAX,
     knn_select,
     knn_select_coords,
     knn_select_rows,
@@ -352,24 +352,37 @@ def test_ball_grid_matches_jax(query_grids):
                                      knn_select],
                          ids=["coords", "rows", "pos"])
 def test_select_list_limit(wrapper):
-    """1024 neighbors run on the CPU and give the 1024 smallest usable
-    distances (numpy, same float32 operations); 1025 raise, naming the
-    limit."""
+    """1024 and 1025 neighbors (the warp classes' largest k and the block
+    class's first) run on the CPU and give the k smallest usable distances
+    in order (numpy, same float32 operations), and their winners: the
+    positions, ids or coordinates of those slots (no ties here). Neither
+    raises: the selects take any k."""
     q, p, cand, qrow, valid = _random_tile(4, T=2, C=4, M=1100)
-    d, _ = wrapper(*(torch.from_numpy(a) for a in (q, p, cand, qrow, valid)),
-                   KMAX)
     diff = q[:, :, None, :] - p[:, None, :, :]
     d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) \
         + diff[..., 2] * diff[..., 2]
     ok = (valid[:, None, :] != 0) & (cand[:, None, :] != qrow[:, :, None])
-    want = np.sort(np.where(ok, d2, np.float32(3e38)), -1)[..., :KMAX]
-    # torch's square root on the CPU: numpy's differs in the last ulp
-    np.testing.assert_array_equal(d.numpy(),
-                                  torch.sqrt(torch.from_numpy(want)).numpy())
-    assert KMAX == 1024
-    with pytest.raises(ValueError, match="at most 1024"):
-        wrapper(*(torch.from_numpy(a) for a in (q, p, cand, qrow, valid)),
-                KMAX + 1)
+    masked = np.where(ok, d2, np.float32(3e38))
+    order = np.argsort(masked, -1, kind="stable")
+    for k in (1024, 1025):
+        d, w = wrapper(*(torch.from_numpy(a)
+                         for a in (q, p, cand, qrow, valid)), k)
+        want = np.take_along_axis(masked, order, -1)[..., :k]
+        # torch's square root on the CPU: numpy's differs in the last ulp
+        np.testing.assert_array_equal(
+            d.numpy(), torch.sqrt(torch.from_numpy(want)).numpy())
+        found = want < 1e38
+        pos = np.where(found, order[..., :k], 0)
+        if wrapper is knn_select:
+            np.testing.assert_array_equal(w.numpy(), pos)
+        elif wrapper is knn_select_rows:
+            np.testing.assert_array_equal(
+                w.numpy(), np.take_along_axis(cand[:, None, :].repeat(4, 1),
+                                              pos, -1))
+        else:
+            np.testing.assert_array_equal(
+                w.numpy(), np.take_along_axis(p[:, None], pos[..., None],
+                                              2))
 
 
 def test_select_coords_k64_matches_pallas_interpret():

@@ -1,7 +1,7 @@
 """The selects past 128 neighbors, on the CPU, against the JAX package.
 
-The port's selects keep up to 1024 neighbors (``ops.select.KMAX``); the
-JAX package's Pallas selects take any k. On a 2000-point torus
+The port's selects take any k, as the JAX package's Pallas selects do
+(past 1024 see tests/test_torch_huge_k.py). On a 2000-point torus
 (perturbed, one module-scoped cloud) at k = 160 and k = 200, each entry
 point runs once in each package (one module-scoped fixture that computes
 each k once):
@@ -65,6 +65,7 @@ from pct_tpu_torch.ops.select import (
 )
 from pct_tpu_torch.pipeline import curvature_pipeline, fast_curvature
 from pct_tpu_torch.shapes import generate_shape
+from tests.test_torch_compat import _estimate_parity
 from tests.test_torch_implicit import _compare
 from tests.test_torch_select import _random_tile
 
@@ -188,7 +189,9 @@ def _normals_agree(nt, nj, idx_t, idx_j):
 def test_estimate_curvature_large_k_matches_jax(runs, torus):
     """max_neighbors=200 at k_fraction 0.2 (k = min(400, 200, n - 1) =
     200), on the rows whose id sets agree with the JAX package's
-    ``knn_cloud_grid`` (the fixture's, at the same k); 1025 raises."""
+    ``knn_cloud_grid`` (the fixture's, at the same k); max_neighbors=1025
+    at the default fraction runs at the JAX package's k = 50 and matches
+    the JAX package by tests/test_torch_compat.py's rule."""
     run, pts = runs(200), torus
     sj = jcompat.estimate_curvature(pts, k_fraction=0.2, max_neighbors=200)
     st = compat.estimate_curvature(pts, k_fraction=0.2, max_neighbors=200,
@@ -199,8 +202,7 @@ def test_estimate_curvature_large_k_matches_jax(runs, torus):
     assert rows.mean() >= 0.999
     np.testing.assert_allclose(st[rows], np.asarray(sj)[rows], rtol=0,
                                atol=1e-4 * np.abs(sj).max())
-    with pytest.raises(ValueError, match="1024"):
-        compat.estimate_curvature(pts, max_neighbors=1025, device="cpu")
+    assert _estimate_parity(pts, 0.025, 1025) == 50
 
 
 @pytest.fixture(scope="module")

@@ -116,11 +116,34 @@ def test_select_coords_exact_ties_follow_candidate_order():
 
 
 def test_select_wrapper_checks_operands():
-    q, p, cand, qrow, valid = (torch.from_numpy(a) for a in _random_tile(1))
+    """Wrong operand types and k = 0 raise; k = 1025, past the warp
+    classes and past the 48 candidate slots, runs: the usable slots in
+    ascending order (numpy, same float32 operations), then the missing
+    slots' (sqrt(3e38), slot 0's coordinates)."""
+    tile = _random_tile(1)
+    q, p, cand, qrow, valid = (torch.from_numpy(a) for a in tile)
     with pytest.raises(ValueError, match="int32"):
         knn_select_coords(q, p, cand.long(), qrow, valid, 5)
-    with pytest.raises(ValueError, match="outside"):
-        knn_select_coords(q, p, cand, qrow, valid, 1025)
+    with pytest.raises(ValueError, match="positive"):
+        knn_select_coords(q, p, cand, qrow, valid, 0)
+    d, nbrs = knn_select_coords(q, p, cand, qrow, valid, 1025)
+    qn, pn, cn, rn, vn = tile
+    diff = qn[:, :, None, :] - pn[:, None, :, :]
+    d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) \
+        + diff[..., 2] * diff[..., 2]
+    ok = (vn[:, None, :] != 0) & (cn[:, None, :] != rn[:, :, None])
+    masked = np.where(ok, d2, np.float32(3e38))
+    order = np.argsort(masked, -1, kind="stable")
+    want = np.full(d.shape, np.float32(3e38))
+    want[..., :48] = np.take_along_axis(masked, order, -1)
+    np.testing.assert_array_equal(
+        d.numpy(), torch.sqrt(torch.from_numpy(want)).numpy())
+    pos = np.zeros(d.shape, np.int64)
+    pos[..., :48] = np.where(want[..., :48] < 1e38, order, 0)
+    T, C, k = d.shape
+    picked = pn[np.arange(T)[:, None, None], pos]
+    np.testing.assert_array_equal(nbrs.numpy(), picked)
+    assert (d[..., 48:] > 1e18).all() and (d[..., 0] < 1e18).all()
 
 
 @pytest.mark.parametrize("make,k", [

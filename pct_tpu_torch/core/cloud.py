@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from pct_tpu_torch.core.device import resolve_device
+from pct_tpu_torch.utils import trace as _trace
 
 PAD_VALUE = 1e9
 
@@ -75,6 +76,7 @@ class PointCloud:
         return {"x": (lo[0], hi[0]), "y": (lo[1], hi[1]), "z": (lo[2], hi[2])}
 
 
+@_trace.stage("load")
 def from_numpy(
     points: np.ndarray,
     normals: Optional[np.ndarray] = None,

@@ -39,6 +39,7 @@ from pct_tpu_torch.neighbors.grid import MAXDIM, PAD_ID, GridIndex
 from pct_tpu_torch.neighbors.knn import NeighborResult
 from pct_tpu_torch.ops.moments import knn_moments
 from pct_tpu_torch.ops.select import knn_select, knn_select_coords, knn_select_rows
+from pct_tpu_torch.utils import trace as _trace
 
 _I32 = torch.int32
 
@@ -149,6 +150,7 @@ DENSE_CELLS = 1 << 23    # dense boundary-map budget (32 MB int32): grids
 # whose bbox holds more cell boxes take the sorted search
 
 
+@_trace.stage("run_table")
 def _runs_table(grid: GridIndex, cells: CellTable):
     """Candidate-run table for every cell of the table.
 
@@ -267,6 +269,7 @@ def _tile_candidates(grid: GridIndex, args, capacity: int, cand_cap: int):
     return cand, ok_cand, cpts, qpts, qrow, ok_q, cover, run_overflow
 
 
+@_trace.stage("candidates")
 def _select_operands(grid: GridIndex, args, capacity: int, cand_cap: int,
                      with_ids: bool = False):
     """The select kernels' operands for a batch of T cells.
@@ -310,10 +313,12 @@ def _tile_select(grid: GridIndex, args, k: int, capacity: int, cand_cap: int,
     """
     ops, ok_q, cover, run_overflow = _select_operands(
         grid, args, capacity, cand_cap, with_ids)
-    dists, win = _SELECTS[want](*ops, k)
-    found = dists < 1e18     # the select backs missing slots with ~3e38
-    exact = (found[..., k - 1] & (dists[..., k - 1] <= cover)
-             & ~run_overflow[:, None])
+    with _trace.span("kernel"):
+        dists, win = _SELECTS[want](*ops, k)
+    with _trace.span("scatter"):
+        found = dists < 1e18     # the select backs missing slots with ~3e38
+        exact = (found[..., k - 1] & (dists[..., k - 1] <= cover)
+                 & ~run_overflow[:, None])
     return win, dists, found, ops[0], ops[3], ok_q, exact
 
 
@@ -334,11 +339,13 @@ def cellwise_tile_runner(grid: GridIndex, k: int, capacity: int,
             grid, args, k, capacity, cand_cap)
         step = max(1, _FIT_QUERIES // capacity)
         parts = []
-        for s in range(0, nbrs.shape[0], step):
-            centered = nbrs[s:s + step] - qpts[s:s + step, :, None, :]
-            parts.append(fn(centered, found[s:s + step]))
-        out = tuple(torch.cat(xs) for xs in zip(*parts))
-        return out, exact & ok_q, dists[..., k - 1], qrow, ok_q
+        with _trace.span("fit"):
+            for s in range(0, nbrs.shape[0], step):
+                centered = nbrs[s:s + step] - qpts[s:s + step, :, None, :]
+                parts.append(fn(centered, found[s:s + step]))
+            out = tuple(torch.cat(xs) for xs in zip(*parts))
+        with _trace.span("scatter"):
+            return out, exact & ok_q, dists[..., k - 1], qrow, ok_q
 
     return run
 
@@ -358,17 +365,22 @@ def moments_tile_runner(grid: GridIndex, k: int, capacity: int,
     del fn
 
     def run(args):
-        cand, ok_cand, cpts, qpts, qrow, ok_q, cover, run_overflow = \
-            _tile_candidates(grid, args, capacity, cand_cap)
-        stats = knn_moments(qpts, cpts, cand, qrow, ok_cand.to(_I32), k)
-        sigma = stats[..., 38]
-        exact = ((stats[..., 45] > 0.0) & (sigma <= cover)
-                 & ~run_overflow[:, None] & ok_q)
+        with _trace.span("candidates"):
+            cand, ok_cand, cpts, qpts, qrow, ok_q, cover, run_overflow = \
+                _tile_candidates(grid, args, capacity, cand_cap)
+            valid = ok_cand.to(_I32)
+        with _trace.span("kernel"):
+            stats = knn_moments(qpts, cpts, cand, qrow, valid, k)
+        with _trace.span("scatter"):
+            sigma = stats[..., 38]
+            exact = ((stats[..., 45] > 0.0) & (sigma <= cover)
+                     & ~run_overflow[:, None] & ok_q)
         return (stats,), exact, sigma, qrow, ok_q
 
     return run
 
 
+@_trace.stage("scatter")
 def _scatter_outputs(n: int, dest: torch.Tensor, out, exact: torch.Tensor,
                      kth: torch.Tensor):
     """Move every per-query output to its (n,) destination in one pass.
@@ -410,6 +422,7 @@ class BucketSpec(NamedTuple):
     max_cells: int   # member-table size
 
 
+@_trace.stage("cells")
 def _bucket_tables(grid: GridIndex, cells: CellTable, spec):
     """Partition of the cell table (+ runs) by size class. The last
     bucket also absorbs any key above its threshold. Returns per bucket
@@ -478,19 +491,23 @@ def cellwise_bucket_rows(grid: GridIndex, cells: CellTable, k: int,
     outs, exacts, kths, dests = [], [], [], []
     for sp, args in bucketed_tile_args(grid, cells, spec):
         if share is not None:
-            args = share(args)
+            with _trace.span("cells"):
+                args = share(args)
         run = runner(grid, k, sp.capacity, sp.cand_cap, fn)
         out, exact, kth, qrow, ok_q = run(args)
-        dest_rows = grid.order[qrow.reshape(-1).long()]
-        dests.append(torch.where(ok_q.reshape(-1), dest_rows, n))
-        outs.append(tuple(a.reshape((-1,) + a.shape[2:]) for a in out))
-        exacts.append(exact.reshape(-1))
-        kths.append(kth.reshape(-1))
-    out = tuple(torch.cat(xs) for xs in zip(*outs))
+        with _trace.span("scatter"):
+            dest_rows = grid.order[qrow.reshape(-1).long()]
+            dests.append(torch.where(ok_q.reshape(-1), dest_rows, n))
+            outs.append(tuple(a.reshape((-1,) + a.shape[2:]) for a in out))
+            exacts.append(exact.reshape(-1))
+            kths.append(kth.reshape(-1))
+    with _trace.span("scatter"):
+        out = tuple(torch.cat(xs) for xs in zip(*outs))
     if post_fn is not None:
         out = post_fn(out)
-    exact = torch.cat(exacts) & ~cells.overflow
-    return out, exact, torch.cat(kths), torch.cat(dests)
+    with _trace.span("scatter"):
+        exact = torch.cat(exacts) & ~cells.overflow
+        return out, exact, torch.cat(kths), torch.cat(dests)
 
 
 def apply_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
@@ -601,6 +618,7 @@ def _optimal_buckets(key_s, counts_s, tot_s, capacity_cap: int,
     return tuple(reversed(out))
 
 
+@_trace.stage("probe")
 def probe_grid_buckets(grid: GridIndex, capacity_cap: int = 256,
                        split_to: int | None = None):
     """Host-side bucket tuning: one compaction + runs probe + one sync.
@@ -642,6 +660,13 @@ def probe_grid_buckets(grid: GridIndex, capacity_cap: int = 256,
                                 capacity_cap, _MAX_BUCKETS, _SIZE_UNIT)
     mc = _round_up(max(num_cells_unsplit, _TILE_CELLS), _TILE_CELLS)
     mc = min(1 << (mc - 1).bit_length(), _round_up(n, _TILE_CELLS))
+    # the layout's fill, from the host arrays the layout was cut from
+    _trace.count("real_queries", counts.sum())
+    _trace.count("query_slots", sum(sp.max_cells * sp.capacity
+                                    for sp in spec))
+    _trace.count("real_candidates", tot.sum())
+    _trace.count("candidate_slots", sum(sp.max_cells * sp.cand_cap
+                                        for sp in spec))
     if split_to is not None:
         return spec, mc, factor
     return spec, mc
@@ -689,52 +714,58 @@ def knn_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
     n = grid.sorted_points.shape[0]
     dev = grid.sorted_points.device
     mc_total = cells.cell_id.shape[0]
-    tables = list(_bucket_tables(grid, cells, bucket_spec))
-    cell_bucket = torch.full((mc_total,), -1, dtype=torch.int64, device=dev)
-    cell_base = torch.zeros((mc_total,), dtype=torch.int64, device=dev)
-    cell_cap = torch.zeros((mc_total,), dtype=_I32, device=dev)
-    for b, (sp, (_, slot)) in enumerate(zip(bucket_spec, tables)):
-        inside = slot < sp.max_cells
-        cell_bucket = torch.where(inside, b, cell_bucket)
-        cell_base = torch.where(inside, slot.long() * sp.capacity, cell_base)
-        cell_cap = torch.where(inside, sp.capacity, cell_cap)
+    with _trace.span("cells"):
+        tables = list(_bucket_tables(grid, cells, bucket_spec))
+        cell_bucket = torch.full((mc_total,), -1, dtype=torch.int64,
+                                 device=dev)
+        cell_base = torch.zeros((mc_total,), dtype=torch.int64, device=dev)
+        cell_cap = torch.zeros((mc_total,), dtype=_I32, device=dev)
+        for b, (sp, (_, slot)) in enumerate(zip(bucket_spec, tables)):
+            inside = slot < sp.max_cells
+            cell_bucket = torch.where(inside, b, cell_bucket)
+            cell_base = torch.where(inside, slot.long() * sp.capacity,
+                                    cell_base)
+            cell_cap = torch.where(inside, sp.capacity, cell_cap)
 
-    ids = grid.sorted_ids
-    prev = torch.cat([ids.new_full((1,), -1), ids[:-1]])
-    is_first = (ids != prev) & (ids != PAD_ID)
-    rank = torch.cumsum(is_first.to(_I32), 0, dtype=_I32) - 1
-    rank_c = torch.clamp(rank, 0, mc_total - 1).long()
-    slot_r = torch.arange(n, dtype=_I32, device=dev) - cells.start[rank_c]
-    covered = ((ids != PAD_ID) & (rank < mc_total)
-               & (cell_bucket[rank_c] >= 0)
-               & (slot_r >= 0) & (slot_r < cell_cap[rank_c]))
-    row_bucket = torch.where(covered, cell_bucket[rank_c], -1)
-    src = cell_base[rank_c] + slot_r
+        ids = grid.sorted_ids
+        prev = torch.cat([ids.new_full((1,), -1), ids[:-1]])
+        is_first = (ids != prev) & (ids != PAD_ID)
+        rank = torch.cumsum(is_first.to(_I32), 0, dtype=_I32) - 1
+        rank_c = torch.clamp(rank, 0, mc_total - 1).long()
+        slot_r = torch.arange(n, dtype=_I32, device=dev) - cells.start[rank_c]
+        covered = ((ids != PAD_ID) & (rank < mc_total)
+                   & (cell_bucket[rank_c] >= 0)
+                   & (slot_r >= 0) & (slot_r < cell_cap[rank_c]))
+        row_bucket = torch.where(covered, cell_bucket[rank_c], -1)
+        src = cell_base[rank_c] + slot_r
 
-    out_idx = torch.zeros((n, k), dtype=_I32, device=dev)
-    out_e = torch.zeros((n,), dtype=torch.bool, device=dev)
-    if lean:
-        kth = torch.zeros((n,), dtype=torch.float32, device=dev)
-    else:
-        out_d = torch.zeros((n, k), dtype=torch.float32, device=dev)
-        out_f = torch.zeros((n, k), dtype=torch.bool, device=dev)
+    with _trace.span("scatter"):
+        out_idx = torch.zeros((n, k), dtype=_I32, device=dev)
+        out_e = torch.zeros((n,), dtype=torch.bool, device=dev)
+        if lean:
+            kth = torch.zeros((n,), dtype=torch.float32, device=dev)
+        else:
+            out_d = torch.zeros((n, k), dtype=torch.float32, device=dev)
+            out_f = torch.zeros((n, k), dtype=torch.bool, device=dev)
     for b, (sp, (args, _)) in enumerate(zip(bucket_spec, tables)):
         rows, dists, _, _, _, ok_q, exact = _tile_select(
             grid, args, k, sp.capacity, sp.cand_cap, want="rows",
             with_ids=original_ids)
-        r = torch.nonzero(row_bucket == b).flatten()
-        at = src[r]
-        out_idx[r] = rows.reshape(-1, k)[at]
-        out_e[r] = (exact & ok_q).reshape(-1)[at]
-        d = dists.reshape(-1, k)[at]
-        del rows, dists
-        if lean:
-            kth[r] = d[:, k - 1]
-        else:
-            out_d[r] = d
-            out_f[r] = d < 1e18
-        del d
-    out_e &= ~cells.overflow
+        with _trace.span("scatter"):
+            r = torch.nonzero(row_bucket == b).flatten()
+            at = src[r]
+            out_idx[r] = rows.reshape(-1, k)[at]
+            out_e[r] = (exact & ok_q).reshape(-1)[at]
+            d = dists.reshape(-1, k)[at]
+            del rows, dists
+            if lean:
+                kth[r] = d[:, k - 1]
+            else:
+                out_d[r] = d
+                out_f[r] = d < 1e18
+            del d
+    with _trace.span("scatter"):
+        out_e &= ~cells.overflow
     if lean:
         return NeighborResult(out_idx, kth[:, None], None, out_e)
     return NeighborResult(out_idx, out_d, out_f, out_e)
@@ -778,7 +809,9 @@ def knn_all_points(grid: GridIndex, k: int, capacity: int | None = None,
     in the one bucket of ``all_points_spec``."""
     spec, mc = all_points_spec(grid.sorted_points.shape[0], k, capacity,
                                max_cells)
-    return knn_cellwise_bucketed(grid, compact_cells(grid, mc), k, spec)
+    with _trace.span("cells"):
+        cells = compact_cells(grid, mc)
+    return knn_cellwise_bucketed(grid, cells, k, spec)
 
 
 def library_capacity_cap(k: int) -> int:
@@ -808,7 +841,9 @@ def knn_all_points_auto_bucketed(grid: GridIndex, k: int) -> NeighborResult:
     select padding tracks each cell's size."""
     spec, mc = probe_grid_buckets(grid,
                                   capacity_cap=library_capacity_cap(k))
-    return knn_cellwise_bucketed(grid, compact_cells(grid, mc), k, spec)
+    with _trace.span("cells"):
+        cells = compact_cells(grid, mc)
+    return knn_cellwise_bucketed(grid, cells, k, spec)
 
 
 # The TPU select's limits (pct_tpu.neighbors.cellknn): its Mosaic

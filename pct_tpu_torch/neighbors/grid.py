@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from pct_tpu_torch.neighbors.bruteforce import mean_nn_distance
+from pct_tpu_torch.utils import trace as _trace
 
 MAXDIM = 1024            # per-axis cells; ids fit int32 (1024^3 = 2^30)
 PAD_ID = 1 << 30
@@ -92,6 +93,7 @@ def quantize_ids(points: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid, linearize(c), PAD_ID).to(torch.int32)
 
 
+@_trace.stage("grid")
 def build_grid(points: torch.Tensor, num_points: int,
                cell_size: torch.Tensor) -> GridIndex:
     """Build the index: quantize -> linearize -> one stable sort."""
@@ -117,6 +119,7 @@ def build_grid(points: torch.Tensor, num_points: int,
     )
 
 
+@_trace.stage("grid")
 def estimate_cell_size(points: torch.Tensor, num_points: int, k: int,
                        sample: int = 512) -> torch.Tensor:
     """() float32 cell edge 1.35·d̄·√k, so that the k nearest neighbors of

@@ -33,6 +33,7 @@ from pct_tpu_torch.neighbors.grid import (
     estimate_cell_size,
     neighbor_cell_ids,
 )
+from pct_tpu_torch.utils import trace as _trace
 
 
 class NeighborResult(NamedTuple):
@@ -165,12 +166,15 @@ def knn_cloud_grid(cloud, k: int, capacity: int | None = None,
     )
 
     dev = resolve_device(device)
-    points = cloud.points.to(dev)
+    with _trace.span("load"):
+        points = cloud.points.to(dev)
     n = cloud.num_points
-    if cell_size is None:
-        cell_size = estimate_cell_size(points, n, k)
-    cell_size = torch.as_tensor(cell_size, dtype=torch.float32, device=dev)
-    grid = build_grid(points, n, cell_size)
+    with _trace.span("grid"):
+        if cell_size is None:
+            cell_size = estimate_cell_size(points, n, k)
+        cell_size = torch.as_tensor(cell_size, dtype=torch.float32,
+                                    device=dev)
+        grid = build_grid(points, n, cell_size)
     if rings != 1:
         # the cell-centric loop is a 27-cell (rings=1) design
         res = knn_grid(grid, grid.sorted_points, k, query_indices=grid.order,
@@ -179,22 +183,35 @@ def knn_cloud_grid(cloud, k: int, capacity: int | None = None,
         res = knn_all_points(grid, k, capacity=capacity)
     else:
         res = knn_all_points_auto_bucketed(grid, k)
-    order = grid.order.long()
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.shape[0], device=dev)
-    res = NeighborResult(*(a[inv] for a in res))
+    with _trace.span("scatter"):
+        order = grid.order.long()
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=dev)
+        res = NeighborResult(*(a[inv] for a in res))
     if exact_fallback:
-        inexact = torch.nonzero(~res.exact[:n]).flatten()
-        if inexact.numel() > n // 2:
-            bi, bd = knn_bruteforce(points, n, k)
-            res = NeighborResult(bi, bd, torch.isfinite(bd),
-                                 torch.ones_like(res.exact))
-        elif inexact.numel():
-            bi, bd = knn_bruteforce(points, n, k, queries=points[inexact],
-                                    query_indices=inexact)
-            res = NeighborResult(*(a.clone() for a in res))
-            res.indices[inexact] = bi
-            res.dists[inexact] = bd
-            res.valid[inexact] = torch.isfinite(bd)
-            res.exact[inexact] = True
+        res = _repair(res, points, n, k)
     return res, grid
+
+
+@_trace.stage("repair")
+def _repair(res: NeighborResult, points: torch.Tensor, n: int, k: int):
+    """``res`` with every row it does not certify re-resolved by brute
+    force (the whole cloud when more than half of the rows need it);
+    counts the rows (``rows``, ``repair_rows``, ``repair_whole``)."""
+    inexact = torch.nonzero(~res.exact[:n]).flatten()
+    _trace.count("rows", n)
+    _trace.count("repair_rows", inexact.numel())
+    if inexact.numel() > n // 2:
+        _trace.count("repair_whole", 1)
+        bi, bd = knn_bruteforce(points, n, k)
+        return NeighborResult(bi, bd, torch.isfinite(bd),
+                              torch.ones_like(res.exact))
+    if inexact.numel():
+        bi, bd = knn_bruteforce(points, n, k, queries=points[inexact],
+                                query_indices=inexact)
+        res = NeighborResult(*(a.clone() for a in res))
+        res.indices[inexact] = bi
+        res.dists[inexact] = bd
+        res.valid[inexact] = torch.isfinite(bd)
+        res.exact[inexact] = True
+    return res

@@ -25,6 +25,7 @@ from pct_tpu_torch.fit.frames import estimate_normals, tangent_frames
 from pct_tpu_torch.fit.quadratic import fit_quadratic
 from pct_tpu_torch.fit.quadric import fit_quadric
 from pct_tpu_torch.neighbors.knn import knn_cloud_grid
+from pct_tpu_torch.utils import trace as _trace
 
 # Rows per chunk: the results do not depend on it. The fit chain runs
 # eagerly, hundreds of small kernels a chunk, so chunks are large.
@@ -59,6 +60,7 @@ def neighborhood_curvature(centered: torch.Tensor, method: str = "explicit",
     raise ValueError(f"unknown method {method!r}")
 
 
+@_trace.stage("fit")
 def pointwise_curvature(points: torch.Tensor, indices: torch.Tensor,
                         method: str = "explicit",
                         tile: int = ROWS_PER_CHUNK,
@@ -82,6 +84,7 @@ def pointwise_curvature(points: torch.Tensor, indices: torch.Tensor,
             torch.cat(normals), torch.cat(coeffs))
 
 
+@_trace.stage("curvature_pipeline")
 def curvature_pipeline(cloud, k: int = 20, method: str = "explicit",
                        capacity: int | None = None, rings: int = 1,
                        tile: int = ROWS_PER_CHUNK,
@@ -94,8 +97,10 @@ def curvature_pipeline(cloud, k: int = 20, method: str = "explicit",
     dev = resolve_device(device)
     res, _ = knn_cloud_grid(cloud, k, capacity=capacity, rings=rings,
                             device=dev)
+    with _trace.span("load"):
+        points = cloud.points.to(dev)
     curv, normals, coeffs = pointwise_curvature(
-        cloud.points.to(dev), res.indices, method=method, tile=tile,
+        points, res.indices, method=method, tile=tile,
         implicit_mode=implicit_mode)
     return PipelineResult(curv, normals, coeffs, res.indices, res.dists)
 

@@ -44,6 +44,7 @@ from pct_tpu_torch.pipeline.curvature_pipeline import (
     neighborhood_curvature,
     pointwise_curvature,
 )
+from pct_tpu_torch.utils import trace as _trace
 
 MOMENTS_MIN_K = 64    # fast_curvature always takes the moments engine here
 SPLIT_TO = 128        # query slots a cell row at most, on the moments route
@@ -70,6 +71,7 @@ def _list_fn(method: str, implicit_mode: str):
     return fn
 
 
+@_trace.stage("fit")
 def _moments_epilogue(out):
     """Flat (rows, 48) moment stats → (K, H, k1, k2, H², normals)."""
     (stats,) = out
@@ -95,9 +97,10 @@ def _fused_rows(grid: GridIndex, k: int, max_cells: int, bucket_spec,
     """The cell table and the engine's cell loop on ``grid``, up to the
     final move: ``cellknn.cellwise_bucket_rows``' flat rows (K, H, k1,
     k2, H², normals), of the ``share`` of every bucket's table."""
-    cells = compact_cells(grid, max_cells)
-    if split is not None and split[1] > 1:
-        cells = split_cells(cells, grid.sorted_points.shape[0], *split)
+    with _trace.span("cells"):
+        cells = compact_cells(grid, max_cells)
+        if split is not None and split[1] > 1:
+            cells = split_cells(cells, grid.sorted_points.shape[0], *split)
     if engine == "moments":
         return cellwise_bucket_rows(
             grid, cells, k, None, bucket_spec, runner=moments_tile_runner,
@@ -186,6 +189,7 @@ def plan_engine(grid: GridIndex, k: int):
     return "moments", spec, mc, factor
 
 
+@_trace.stage("fast_curvature")
 def fast_curvature(cloud, k: int = 20, method: str = "explicit",
                    implicit_mode: str = "exact", *,
                    device: str | torch.device = "cuda") -> FusedResult:
@@ -204,7 +208,8 @@ def fast_curvature(cloud, k: int = 20, method: str = "explicit",
     """
     _check_slice(k, method)
     dev = resolve_device(device)
-    points = cloud.points.to(dev)
+    with _trace.span("load"):
+        points = cloud.points.to(dev)
     n = cloud.num_points
     cell = estimate_cell_size(points, n, k)
     grid = build_grid(points, n, cell)
@@ -218,4 +223,5 @@ def fast_curvature(cloud, k: int = 20, method: str = "explicit",
     res, _ = knn_cloud_grid(cloud, k, device=dev)
     curv, normals, _ = pointwise_curvature(points, res.indices, method=method,
                                            implicit_mode=implicit_mode)
-    return FusedResult(curv, normals, res.exact, res.dists[:, -1])
+    with _trace.span("scatter"):
+        return FusedResult(curv, normals, res.exact, res.dists[:, -1])

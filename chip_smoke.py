@@ -7,9 +7,9 @@ Phases, in order; any failed check raises and the script exits non-zero
 without printing its result line:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build every CUDA kernel of the port from the checkout's sources (the
-   eight libraries, each nvcc's seconds and its kernels' registers,
-   spills and stack from ``-Xptxas=-v`` printed);
+2. build every CUDA kernel of the port from the checkout's sources
+   (each ``csrc/*.cu`` library, its nvcc seconds and its kernels'
+   registers, spills and stack from ``-Xptxas=-v`` printed);
 3. the list engine, k=20, on the 1M-point torus (padded to 1<<16):
    a. the coords select kernel against its plain PyTorch version on
       every occupancy bucket of the main path: bit-identical; beside
@@ -26,8 +26,14 @@ without printing its result line:
       35 moment columns within count_le²·2⁻²⁴; beside each bucket, the
       partial library yardstick (``torch.kthvalue`` of the prebuilt
       masked d²: τ only) and the first design's time;
-   b. the main path, ``fast_curvature(k=100)``, with the same checks;
-   c. the virtual split on the card: ``fused_curvature(engine=
+   b. the main path, ``fast_curvature(k=100)``, with the same checks
+      and one epilogue launch a call;
+   c. the epilogue kernel of that path: one more call with its
+      ``moments_epilogue`` watched, the (rows, 8) output it returned
+      against ``epilogue_plain`` on the card over the same stats, bit
+      for bit on every column (padding rows included), then timed
+      beside the plain version and its bytes bound (224 B a row);
+   d. the virtual split on the card: ``fused_curvature(engine=
       "moments")`` with cells split to 64 queries a row against the
       unsplit layout;
 5. library kNN, the staged pipeline and the implicit method, same cloud:
@@ -67,8 +73,9 @@ without printing its result line:
       gives it, the moments kernel at k=50 (split probe) as in 4a, the
       rows kernel at kv=12 (voters) and at kc=16 (the one-bucket coarse
       graph) bit for bit; launches counted at each k against the plan's
-      buckets, sign agreement with the analytic tube normal, unit
-      length, no NaN;
+      buckets (and one epilogue launch: the fit normals come from the
+      moments route's epilogue), sign agreement with the analytic tube
+      normal, unit length, no NaN;
    b. ``fast_curvature(k=20)`` on the vertices of a structured 1000 x
       1000 torus mesh (1M vertices, 2M faces): the coords kernel
       bit-identical to its plain version on every bucket, launches,
@@ -86,7 +93,8 @@ without printing its result line:
       stretching against the analytic torus, beside the JAX package's
       own 1M run;
    c. the stage timings, device stages against host stages;
-   d. the launches of that call at each k (moments at k=50, rows at
+   d. the launches of that call at each k (moments and one epilogue
+      at k=50, rows at
       kv=12 and kc=16, coords at k=20 once a bucket of the smoothed
       vertices' layout), then the coords kernel bit-identical to its
       plain version on every bucket of that layout;
@@ -105,8 +113,8 @@ without printing its result line:
       recomputed from a separate ``fast_curvature`` call within 1e-6;
    c. ``run_scans(repeat=2)`` at its defaults (k=100, outlier filter,
       study tolerance 1e-2) on the torus written as a points-only binary
-      PLY: two ok rows with equal energies, the moments kernel launched
-      as in phase 4b each run;
+      PLY: two ok rows with equal energies, the moments and epilogue
+      kernels launched as in phase 4b each run;
 10. the distributed layer (``pct_tpu_torch.distributed``) in a NCCL
     world of one on cuda:0 (``make_mesh()``; the process group is
     destroyed after the phase), same cloud, each path driven with the
@@ -118,7 +126,8 @@ without printing its result line:
        the warm wall beside ``fused_curvature``'s on that layout and
        phase 3b's;
     b. the same at k=100 on the moments engine and its split layout:
-       moments launches as phase 4b, bit-identical, K error as in 4b;
+       moments and epilogue launches as phase 4b, bit-identical, K error
+       as in 4b;
     c. ``slab_curvature_unsorted(k=20)`` at the probed halo, then with
        ``distributed_sort=True``: bit-identical to each other, exact
        equal to the un-bucketed ``fused_curvature`` on the same
@@ -230,8 +239,9 @@ without printing its result line:
        for bit) and ``fused_curvature(engine="list")`` on the implicit
        probe's buckets (coords launches one a bucket): NaN 0, median K
        errors printed; then explicit ``fast_curvature(2048)`` (the
-       moments engine, unchanged): NaN 0, exact and K error printed;
-13. the kernel table (one JSON line, eight kernels, each with the card's
+       moments engine and one epilogue launch): NaN 0, exact and K
+       error printed;
+13. the kernel table (one JSON line, nine kernels, each with the card's
     name and power limit; each package kernel's ``mesh_path`` lists its
     records at phase 7's and phase 8's shapes, ``validation`` its
     launches in phase 9, ``distributed`` its launches in 10a-10c,
@@ -581,6 +591,63 @@ def moments_vs_plain(cellknn, grid, cells, spec, k):
     check(differing == 0, "moments columns 35-47 bit-identical")
     check(max_ratio <= 1.0, "moment columns within count_le^2 2^-24")
     return per_bucket, max_err, max_ratio
+
+
+EPILOGUE_ROW_BYTES = 224         # a row's 48 float32 stats in, 8 out
+
+
+def epilogue_vs_plain(cloud, k):
+    """Phase 4c: one more ``fast_curvature(k)`` call with the fused
+    route's ``moments_epilogue`` watched; the output the call got from
+    the kernel against ``epilogue_plain`` on the card over the same
+    stats, bit for bit on every column (float32 compared as int32, so
+    the padding rows' NaNs count too). Then the kernel and the plain
+    version timed on those stats. Returns the kernel's per-call record
+    (one "bucket": the call's every row)."""
+    import torch
+
+    import pct_tpu_torch.pipeline.fused as fused
+    from pct_tpu_torch.ops.epilogue import epilogue_plain
+
+    seen = []
+    real = fused.moments_epilogue
+
+    def watched(stats):
+        out = real(stats)
+        seen.append((stats.clone(), out.clone()))
+        return out
+
+    fused.moments_epilogue = watched
+    try:
+        fused.fast_curvature(cloud, k)
+        torch.cuda.synchronize()
+    finally:
+        fused.moments_epilogue = real
+    check(len(seen) == 1, f"fast_curvature k={k}: one epilogue call, got "
+          f"{len(seen)}")
+    (stats, got), = seen
+    want = epilogue_plain(stats)
+    torch.cuda.synchronize()
+    differing = (got.view(torch.int32) != want.view(torch.int32)).sum(0)
+    rows = stats.shape[0]
+    nan_rows = int(torch.isnan(want[:, 0]).sum())
+    max_err = float((got - want).abs().nan_to_num(0.0).max())
+    nb = rows * EPILOGUE_ROW_BYTES
+    b_ms, b_by = bound(0, 0, 0, nb)
+    rec = dict(bucket=0, cells=0, capacity=0, M=0, pairs=0, rows=rows,
+               nan_rows=nan_rows, bytes=nb, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None,
+               ms=event_ms(lambda: real(stats), TIMED_REPS),
+               plain_ms=event_ms(lambda: epilogue_plain(stats), 3))
+    log(f"epilogue kernel vs plain on fast_curvature k={k}'s stats: {rows} "
+        f"rows ({nan_rows} with NaN K: padding slots), differing words by "
+        f"column {differing.tolist()}; kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{EPILOGUE_ROW_BYTES} B a row)")
+    check(int(differing.sum()) == 0,
+          "epilogue kernel bit-identical to its plain version on every "
+          "column of the main path's rows")
+    return rec, max_err
 
 
 def reset_counts(counters):
@@ -1190,8 +1257,8 @@ def normals_phase(label, cloud, pts, counters, none):
     nrm, walls, launches = drive(
         lambda: estimate_and_orient_normals(cloud, k=K_NORMALS),
         f"estimate_and_orient_normals k={k}", counters,
-        {**none, "moments": len(spec_m), "select_rows": len(spec_v) + 1},
-        want_by_k={"select_rows": {kv: len(spec_v), kc: 1}})
+        {**none, "moments": len(spec_m), "select_rows": len(spec_v) + 1,
+         "epilogue": 1}, want_by_k={"select_rows": {kv: len(spec_v), kc: 1}})
     by_k = dict(counters["select_rows"].launches_by_k)
     got = nrm[:n].cpu().numpy()
     agree = tube_normal_agreement(got, pts)
@@ -1483,7 +1550,7 @@ def mesh_path_phase(label, pts, counters, none):
     check(engine == "list", f"mesh vertices k={K_LIST} run the list engine")
     log(f"vertex curvature k={K_LIST} on the BPA mesh's smoothed vertices: "
         f"{len(spec)} buckets {[tuple(s) for s in spec]}")
-    want = {**none, "moments": len(spec_m),
+    want = {**none, "moments": len(spec_m), "epilogue": 1,
             "select_rows": len(spec_v) + 1, "select_coords": len(spec)}
     log(f"mesh path launches: {launches}; select_rows by k "
         f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}")
@@ -1629,8 +1696,8 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     check(d_str <= 1e-3 * mass,
           "sweep stretching within 1e-3 sum |K|_f A_f of phase 8b")
     spec_v = vertex_buckets(mesh.vertices, K_LIST)
-    want = {**none, "moments": n_mom, "select_rows": n_voters + 1,
-            "select_coords": len(spec_v)}
+    want = {**none, "moments": n_mom, "epilogue": 1,
+            "select_rows": n_voters + 1, "select_coords": len(spec_v)}
     log(f"sweep row launches: {launches}; select_rows by k "
         f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}"
         f" (the row's smoothed vertices: {len(spec_v)} buckets)")
@@ -1707,7 +1774,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
         torch.cuda.synchronize()
         wall_c = time.perf_counter() - t0
         launches, _ = read_counts(counters)
-    want = {**none, "moments": 2 * n100}
+    want = {**none, "moments": 2 * n100, "epilogue": 2}
     for sr in scan_rows:
         log(f"[{label}] run_scans row {sr['run']}: {sr['status']}, "
             f"{sr['num_points']} points, converged k {sr['converged_k']} "
@@ -1731,6 +1798,8 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
                                   validate_launches["select_coords"]},
             "moments": {"sweep_mesh": sweep_launches["moments"],
                         "scans_k100_two_runs": launches["moments"]},
+            "epilogue": {"sweep_mesh": sweep_launches["epilogue"],
+                         "scans_k100_two_runs": launches["epilogue"]},
             "select_rows": {"sweep_mesh": sweep_launches["select_rows"]},
             "select_pos": {}, "band_select": {}}
 
@@ -1788,16 +1857,15 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
               "engine")
         kw = dict(bucket_spec=spec, max_cells=mc, engine=engine,
                   split=(SPLIT_TO, factor))
-        kernel = "select_coords" if engine == "list" else "moments"
+        want = ({**none, "select_coords": len(spec)} if engine == "list"
+                else {**none, "moments": len(spec), "epilogue": 1})
         res, w, got = drive(
             lambda: sharded_curvature(mesh, cloud.points, n, cell, k, **kw),
-            f"{tag} sharded_curvature k={k}", counters,
-            {**none, kernel: len(spec)})
+            f"{tag} sharded_curvature k={k}", counters, want)
         launches[tag], walls[tag] = got, w
         ref, w_ref, _ = drive(
             lambda: fused_curvature(cloud.points, n, cell, k, **kw),
-            f"{tag} fused_curvature k={k}", counters,
-            {**none, kernel: len(spec)})
+            f"{tag} fused_curvature k={k}", counters, want)
         for name, a in fused_outputs(res):
             check(same_bits(a, dict(fused_outputs(ref))[name]),
                   f"{tag}: {name} bit-identical to fused_curvature on the "
@@ -2228,7 +2296,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
 
     plan = nm.plan_normals(pc.cloud.points, n, K_NORMALS)
     kv, kc = plan.kv, plan.kc
-    want_n = {"moments": len(plan.moments[0]),
+    want_n = {"moments": len(plan.moments[0]), "epilogue": 1,
               "select_rows": len(plan.rows[0]) + 1}
     want_k = {"select_rows": {kv: len(plan.rows[0]), kc: 1}}
     log(f"façade normals k={K_NORMALS}: stride {plan.stride} (phase 7a's "
@@ -2878,7 +2946,7 @@ def huge_k_phase(label, cloud, pts, counters, none):
     del grid
     mom, out["walls"][f"fast_curvature k={k}"], _ = drive(
         lambda: fast_curvature(cloud, k), f"fast_curvature k={k}", counters,
-        {**none, "moments": len(spec)}, warm=1)
+        {**none, "moments": len(spec), "epilogue": 1}, warm=1)
     K = mom.curv.K[:n].cpu().numpy()
     out["moments_err"] = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
     log(f"fast_curvature k={k} (moments, {len(spec)} buckets): exact "
@@ -2933,6 +3001,7 @@ def main():
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.ops import build
     from pct_tpu_torch.neighbors import knn_cloud_grid
+    from pct_tpu_torch.ops.epilogue import moments_epilogue
     from pct_tpu_torch.ops.moments import knn_moments
     from pct_tpu_torch.ops.select import (
         knn_select,
@@ -2982,7 +3051,7 @@ def main():
                 "band_select": knn_band_select,
                 "moments_split": moments_variant,
                 "select_coords_mxu": select_coords_mxu,
-                "moments_like": moments_like}
+                "moments_like": moments_like, "epilogue": moments_epilogue}
     none = {name: 0 for name in counters}
 
     # --- 3. list engine, k=20 ---
@@ -3018,10 +3087,11 @@ def main():
     del cells
     res100, walls100, launches100 = drive(
         lambda: fast_curvature(cloud, K_MOM), f"fast_curvature k={K_MOM}",
-        counters, {**none, "moments": len(spec100)})
+        counters, {**none, "moments": len(spec100), "epilogue": 1})
     accuracy(res100, cloud, pts, K_MOM, 1.0e-3)
     kth_vs_bruteforce(res100, cloud, K_MOM)
     del res100
+    epi = epilogue_vs_plain(cloud, K_MOM)
 
     # the virtual split on the card: cells of <= 64 queries a row
     spec64, mc64, f64 = cellknn.probe_grid_buckets(
@@ -3208,6 +3278,16 @@ def main():
                    "pct_tpu/experimental/pallas_band.py:49",
                    band_row["launches"], band_row["max_err"], [band_row]),
     ]
+    epi_rec, epi_err = epi
+    rows.append(kernel_row("epilogue", "pct_tpu_torch/csrc/epilogue.cu",
+                           "pct_tpu/fit/moments.py:313",
+                           launches100["epilogue"], epi_err, [epi_rec],
+                           flops=0))
+    rows[-1]["rows"] = epi_rec["rows"]
+    rows[-1]["bound_counts"] = (f"bytes only, {EPILOGUE_ROW_BYTES} B a row "
+                                "(its operations are not counted)")
+    rows[-1]["library_call"] = ("none: the eager einsum chain it replaces "
+                                "is not kept")
     rows[1]["max_err_ratio"] = mom_ratio
     # k=100: the rows kernel on the implicit k=100 path (knn_cloud_grid's
     # k=100 buckets), the positions kernel on the same operands

@@ -14,7 +14,9 @@ Ported so far:
   (``ops.select.knn_select_coords``, ``csrc/select_coords.cu``); the
   moments engine (explicit, k >= 64, and smaller k where the JAX
   package's engine rule refuses the list engine) runs the moments kernel
-  (``ops.moments.knn_moments``, ``csrc/moments.cu``); the implicit
+  (``ops.moments.knn_moments``, ``csrc/moments.cu``) and turns its
+  stats into curvature in one more (``ops.epilogue.moments_epilogue``,
+  ``csrc/epilogue.cu``); the implicit
   method falls back to the staged path where the list engine is refused.
 - library kNN, ``neighbors.knn_cloud_grid`` (plus ``knn_grid``,
   ``ball_grid``), which runs the rows select kernel

@@ -21,40 +21,33 @@ Divergences from the list-based path (as in the JAX package):
   instead of the max extent (the max is not a moment); preconditioning
   changes rounding, not the least-squares optimum.
 
-The rotation is always the stepwise tensor contraction
-(``rotated_moments``); the JAX package's symbolic per-term expansion
-exists to keep an XLA compile small and has no use here. Its einsums run
-in full float32: TF32 is off (``pct_tpu_torch/__init__.py``).
+``curvature_from_moments`` runs the whole chain through
+``ops.epilogue.moments_epilogue``: one launch of the epilogue kernel on
+CUDA tensors, its plain version on CPU tensors, both with the rotation
+contracted one row at a time in symmetric storage and every sum in a
+fixed order. ``covariance_from_moments``, ``rotated_moments`` (the
+stepwise einsum contraction) and ``fit_quadratic_from_moments`` are the
+chain's steps as the JAX package has them; the JAX package's symbolic
+per-term expansion exists to keep an XLA compile small and has no use
+here. The einsums run in full float32: TF32 is off
+(``pct_tpu_torch/__init__.py``).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from pct_tpu_torch.curvature.explicit import Curvatures, explicit_curvatures
-from pct_tpu_torch.fit.eigh3 import smallest_eigvec3
-from pct_tpu_torch.fit.frames import rodrigues_to_z
-from pct_tpu_torch.fit.quadratic import _RIDGE, cholesky_solve
-
-# Moment layout: all exponent triples (a, b, c) with a+b+c <= 4,
-# graded-lexicographic; index 0 is (0,0,0) = Σw (the weighted count).
-MOMENT_EXPS: tuple = tuple(
-    (a, b, c)
-    for d in range(5)
-    for a in range(d, -1, -1)
-    for b in range(d - a, -1, -1)
-    for c in (d - a - b,)
+from pct_tpu_torch.curvature.explicit import Curvatures
+from pct_tpu_torch.fit.layout import (  # noqa: F401  (the layout's home)
+    _IDX,
+    MOMENT_EXPS,
+    NUM_MOMENTS,
+    moment_index,
 )
-NUM_MOMENTS = len(MOMENT_EXPS)          # 35
-_IDX = {e: i for i, e in enumerate(MOMENT_EXPS)}
-
-CHUNK_ROWS = 1 << 18     # rows per chunk of the epilogue (bounds the
-# (rows, 3,3,3,3) contraction intermediates to ~85 MB each)
-
-
-def moment_index(a: int, b: int, c: int) -> int:
-    return _IDX[(a, b, c)]
-
+from pct_tpu_torch.fit.quadratic import _RIDGE, cholesky_solve
+from pct_tpu_torch.ops.epilogue import NIN, epilogue_plain, moments_epilogue
 
 def neighborhood_moments(centered: torch.Tensor, weights: torch.Tensor,
                          sigma: torch.Tensor) -> torch.Tensor:
@@ -214,36 +207,40 @@ def curvature_from_moments(m: torch.Tensor, sigma: torch.Tensor,
                            nearest: torch.Tensor, kth_pt: torch.Tensor,
                            rotation: str = "symbolic"):
     """Moments → (Curvatures, normals): the same chain as
-    tangent_frames + fit_quadratic + explicit_curvatures.
+    tangent_frames + fit_quadratic + explicit_curvatures, over the
+    leading axes of m (..., 35) and sigma (...,), as one epilogue call.
+
+    float32 operands take ``ops.epilogue.moments_epilogue`` (one kernel
+    launch on the card, its plain version on the CPU); any other
+    floating dtype takes the plain version in that dtype, on the
+    operands' device, so the outputs keep the operands' dtype.
 
     nearest/kth_pt: (..., 3) offsets p - q of the nearest and the kth
     neighbor (unscaled), for the reference's sign fix pts[-1] - pts[0].
     ``rotation`` is accepted for the JAX package's signature: the port
-    has one contraction (``rotated_moments``) for every value.
+    has one contraction for every value.
     """
-    _, n = smallest_eigvec3(covariance_from_moments(m))
-    flip = torch.sum(n * (kth_pt - nearest), dim=-1) < 0.0
-    n = torch.where(flip[..., None], -n, n)
-    S = rotated_moments(m, rodrigues_to_z(n))
-    coeffs = fit_quadratic_from_moments(S, m[..., _IDX[(0, 0, 0)]], sigma)
-    return explicit_curvatures(coeffs), n
+    lead = m.shape[:-1]
+    rows = math.prod(lead)
+    stats = m.new_zeros((rows, NIN))
+    stats[:, :NUM_MOMENTS] = m.reshape(rows, NUM_MOMENTS)
+    stats[:, 38] = sigma.reshape(rows)
+    stats[:, 39:42] = nearest.reshape(rows, 3)
+    stats[:, 42:45] = kth_pt.reshape(rows, 3)
+    epilogue = (moments_epilogue if stats.dtype == torch.float32
+                else epilogue_plain)
+    out = epilogue(stats).reshape(lead + (-1,))
+    return Curvatures(*out[..., :5].unbind(-1)), out[..., 5:]
 
 
 def curvature_from_moments_chunked(m: torch.Tensor, sigma: torch.Tensor,
                                    nearest: torch.Tensor,
                                    kth_pt: torch.Tensor,
-                                   chunk: int = CHUNK_ROWS,
+                                   chunk: int = 1 << 18,
                                    rotation: str = "symbolic"):
-    """``curvature_from_moments`` over (N, ...) rows in chunks of
-    ``chunk`` rows, which bounds the (rows, 3,3,3,3) intermediates of
-    the rotation. Row-for-row, so the result does not depend on the
-    chunking beyond the rounding of the small batched products.
-    ``rotation`` is accepted for the JAX package's signature: the port
-    has one contraction for every value."""
-    if m.shape[0] <= chunk:
-        return curvature_from_moments(m, sigma, nearest, kth_pt)
-    parts = [curvature_from_moments(m[s:s + chunk], sigma[s:s + chunk],
-                                    nearest[s:s + chunk], kth_pt[s:s + chunk])
-             for s in range(0, m.shape[0], chunk)]
-    curv = Curvatures(*(torch.cat(xs) for xs in zip(*(c for c, _ in parts))))
-    return curv, torch.cat([n for _, n in parts])
+    """``curvature_from_moments`` over (N, ...) rows. ``chunk`` and
+    ``rotation`` are accepted for the JAX package's signature: the
+    epilogue keeps no intermediate that grows with the rows beyond its
+    (N, 48) operand, so every N is one call."""
+    del chunk
+    return curvature_from_moments(m, sigma, nearest, kth_pt)

@@ -16,7 +16,7 @@ are skipped):
 4. weights w = 1 below τ, w_tie = clip((k − count_lt)/count_eq, 0, 1)
    at τ, 0 above;
 5. r̂ = clip((p − q)·(1/σ), −2, 2) with σ = √τ, and the 35 sums
-   Σ w·x̂ᵃŷᵇẑᶜ over a+b+c ≤ 4 in ``fit.moments.MOMENT_EXPS`` order. Each
+   Σ w·x̂ᵃŷᵇẑᶜ over a+b+c ≤ 4 in ``fit.layout.MOMENT_EXPS`` order. Each
    monomial is built by the product chain (a,b,c) = (a−1,b,c)·x̂ when
    a > 0, else (a,b−1,c)·ŷ when b > 0, else (a,b,c−1)·ẑ.
 
@@ -42,7 +42,7 @@ import functools
 
 import torch
 
-from pct_tpu_torch.fit.moments import MOMENT_EXPS
+from pct_tpu_torch.fit.layout import MOMENT_EXPS
 from pct_tpu_torch.ops import build
 
 NOUT = 48

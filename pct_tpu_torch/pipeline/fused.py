@@ -12,7 +12,8 @@ directly to the caller's point order.
   runs for the explicit method at k >= 64, and at smaller k when
   ``list_engine_ok`` refuses a bucket) reduces each neighborhood to 35
   moment sums in the kernel and rebuilds the explicit chain from them
-  (``fit.moments``), once over the flat stats before the move. The
+  (``ops.epilogue.moments_epilogue``, ``fit.moments``' chain as one
+  kernel), once over the flat stats before the move. The
   implicit method has no moment form: where ``list_engine_ok`` refuses
   it, ``fast_curvature`` takes the staged path (``knn_cloud_grid`` +
   ``pointwise_curvature``), as the JAX package does.
@@ -20,13 +21,13 @@ directly to the caller's point order.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from pct_tpu_torch.core.device import resolve_device
 from pct_tpu_torch.curvature.explicit import Curvatures
-from pct_tpu_torch.fit.moments import curvature_from_moments_chunked
 from pct_tpu_torch.neighbors.cellknn import (
     _scatter_outputs,
     all_points_spec,
@@ -40,6 +41,8 @@ from pct_tpu_torch.neighbors.cellknn import (
 )
 from pct_tpu_torch.neighbors.grid import GridIndex, build_grid, estimate_cell_size
 from pct_tpu_torch.neighbors.knn import knn_cloud_grid
+from pct_tpu_torch.ops import build
+from pct_tpu_torch.ops.epilogue import moments_epilogue
 from pct_tpu_torch.pipeline.curvature_pipeline import (
     neighborhood_curvature,
     pointwise_curvature,
@@ -71,13 +74,21 @@ def _list_fn(method: str, implicit_mode: str):
     return fn
 
 
+@functools.cache
+def _build_moments_route():
+    """Compile the moments route's two kernels, the moments kernel and
+    its epilogue, in one parallel nvcc batch (on a cold build cache each
+    op's loader would otherwise build its own in turn)."""
+    build.build_all(["moments", "epilogue"])
+
+
 @_trace.stage("fit")
 def _moments_epilogue(out):
-    """Flat (rows, 48) moment stats → (K, H, k1, k2, H², normals)."""
+    """Flat (rows, 48) moment stats → (K, H, k1, k2, H², normals): one
+    ``moments_epilogue`` over every row (one launch on the card)."""
     (stats,) = out
-    curv, normals = curvature_from_moments_chunked(
-        stats[:, :35], stats[:, 38], stats[:, 39:42], stats[:, 42:45])
-    return (*curv, normals)
+    res = moments_epilogue(stats)
+    return (*res[:, :5].unbind(1), res[:, 5:])
 
 
 def _check_slice(k: int, method: str, engine: str | None = None):
@@ -102,6 +113,8 @@ def _fused_rows(grid: GridIndex, k: int, max_cells: int, bucket_spec,
         if split is not None and split[1] > 1:
             cells = split_cells(cells, grid.sorted_points.shape[0], *split)
     if engine == "moments":
+        if grid.sorted_points.is_cuda:
+            _build_moments_route()
         return cellwise_bucket_rows(
             grid, cells, k, None, bucket_spec, runner=moments_tile_runner,
             post_fn=_moments_epilogue, share=share)

@@ -16,6 +16,8 @@ from pct_tpu_torch.experimental.band_select import (
     band_select_plain,
     knn_band_select,
 )
+from pct_tpu_torch.fit.moments import MOMENT_EXPS
+from pct_tpu_torch.ops.epilogue import epilogue_plain, moments_epilogue
 from pct_tpu_torch.ops.moments import (
     knn_moments,
     moments_plain,
@@ -1045,3 +1047,128 @@ def test_moments_like_kernel_takes_unaligned_views(cuda):
     got = moments_like(x, y)
     want = moments_like_plain(x, y)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---- the moments route's epilogue kernel ----------------------------------
+
+def _epilogue_rows(seed):
+    """(rows, 48) stats of several kinds, 4,069 rows (not a multiple of the
+    kernel's 128-row block): the moments kernel's stats of random tiles
+    (under-k and empty rows among them), Gaussian stats, all-zero padding
+    rows, and exactly planar neighbourhoods whose normal is ±z."""
+    rng = np.random.default_rng(seed)
+    ops = [torch.from_numpy(a) for a in _tile(seed, 40, 64, 300,
+                                               sparse=False)]
+    ops[4][::5] = 0                                 # empty rows
+    ops[4][1::5, 50:] = 0                           # under-k rows
+    real = moments_plain(*ops, 20).reshape(-1, 48)
+    gauss = torch.from_numpy(rng.standard_normal((1500, 48)).astype(
+        np.float32))
+    gauss[:, 0] = gauss[:, 0].abs() * 50.0
+    g = np.arange(-2, 3) / 4.0
+    x, y = (a.ravel() for a in np.meshgrid(g, g))
+    plane = np.zeros((2, 48), np.float32)
+    for r, sign in enumerate((1.0, -1.0)):     # the sign fix: +z, then -z
+        for i, (a, b, c) in enumerate(MOMENT_EXPS):
+            plane[r, i] = np.sum(x**a * y**b * 0.0**c)
+        plane[r, 38] = 1.0
+        plane[r, 44] = sign                         # kth − nearest along z
+    return torch.cat([real, gauss, torch.zeros(7, 48),
+                      torch.from_numpy(plane)]).contiguous()
+
+
+def test_epilogue_kernel_bit_identical(cuda):
+    """The kernel against ``epilogue_plain`` run on the card: the same
+    bits on every column, padding rows' NaNs included."""
+    stats = _epilogue_rows(11).to(cuda)
+    before = moments_epilogue.launches
+    got = moments_epilogue(stats)
+    torch.cuda.synchronize()
+    assert moments_epilogue.launches == before + 1
+    want = epilogue_plain(stats)
+    assert torch.isnan(want[-9:-2, :5]).all()
+    assert torch.equal(want[-2:, 5:].abs(), torch.tensor(
+        [[0.0, 0.0, 1.0]] * 2, device=cuda))
+    differing = (got.view(torch.int32) != want.view(torch.int32)).sum(0)
+    assert differing.sum() == 0, differing.tolist()
+    assert moments_epilogue(stats[:0]).shape == (0, 8)
+
+
+def _kernel_names(fn):
+    """The names of the CUDA kernels ``fn()`` launches, one per launch."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("Memcpy")
+            and not e.name.startswith("Memset")]
+
+
+@pytest.fixture(scope="module")
+def torus_1m_epilogue():
+    """A warm fast_curvature(k=100) on the 1M torus: the stats the
+    epilogue got (every bucket's rows, padding slots included), the
+    epilogue's launches in that call, the call's result, and the kernels
+    of a profiled call, of its epilogue stage alone and of its cell-size
+    estimate alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    import pct_tpu_torch.pipeline.fused as fused
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.neighbors.grid import estimate_cell_size
+
+    cloud = from_numpy(_torus_cloud(1_000_000), device="cuda")
+    fused.fast_curvature(cloud, 100)
+    seen = []
+    orig = fused._moments_epilogue
+
+    def spy(out):
+        seen.append(out[0].clone())
+        return orig(out)
+
+    fused._moments_epilogue = spy
+    try:
+        before = moments_epilogue.launches
+        res = fused.fast_curvature(cloud, 100)
+        torch.cuda.synchronize()
+        launches = moments_epilogue.launches - before
+    finally:
+        fused._moments_epilogue = orig
+    kernels = {
+        "call": _kernel_names(lambda: fused.fast_curvature(cloud, 100)),
+        "fit": _kernel_names(lambda: orig((seen[0],))),
+        "cell_size": _kernel_names(lambda: estimate_cell_size(
+            cloud.points, cloud.num_points, 100)),
+    }
+    return seen, launches, kernels, res
+
+
+def test_epilogue_kernel_bit_identical_on_torus_1m(torus_1m_epilogue):
+    """Every row of a 1M-point fast_curvature(k=100) call, in one
+    ``post_fn`` call: the kernel's bits are the plain version's."""
+    seen, launches, _, res = torus_1m_epilogue
+    assert len(seen) == 1 and launches == 1
+    stats = seen[0]
+    assert stats.shape[0] > 1_000_000
+    got = moments_epilogue(stats)
+    want = epilogue_plain(stats)
+    differing = (got.view(torch.int32) != want.view(torch.int32)).sum(0)
+    assert differing.sum() == 0, differing.tolist()
+    assert torch.isfinite(res.curv.K).all()
+
+
+def test_fused_fit_is_one_launch_and_no_cublas(torus_1m_epilogue):
+    """The fused k=100 call's fit stage (``pct.fit`` on the moments route)
+    is the epilogue kernel alone, one launch; the call's only cuBLAS
+    kernels are the cell-size estimate's (its sampled 1-NN distances)."""
+    _, _, kernels, _ = torus_1m_epilogue
+    assert len(kernels["fit"]) == 1 and "epilogue_kernel" in kernels["fit"][0]
+
+    def blas(names):
+        return [n for n in names
+                if any(t in n.lower() for t in ("gemm", "cublas", "xmma"))]
+
+    assert sum("epilogue_kernel" in n for n in kernels["call"]) == 1
+    assert sorted(blas(kernels["call"])) == sorted(blas(kernels["cell_size"]))

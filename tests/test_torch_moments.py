@@ -33,10 +33,13 @@ from pct_tpu.ops.pallas_moments import xla_moment_stats
 from pct_tpu.pipeline.fused import fast_curvature as jax_fast_curvature
 from pct_tpu.pipeline.fused import fused_curvature as jax_fused_curvature
 from pct_tpu_torch.core import from_numpy, from_reference_arrays
+from pct_tpu_torch.curvature.explicit import explicit_curvatures
 from pct_tpu_torch.fit import moments as tmom
+from pct_tpu_torch.fit.eigh3 import smallest_eigvec3
 from pct_tpu_torch.fit.frames import rodrigues_to_z
 from pct_tpu_torch.neighbors import cellknn
 from pct_tpu_torch.neighbors.grid import build_grid
+from pct_tpu_torch.ops.epilogue import epilogue_plain
 from pct_tpu_torch.ops.moments import knn_moments, stats_agreement
 from pct_tpu_torch.pipeline import fast_curvature, fused_curvature
 from pct_tpu_torch.shapes import generate_shape
@@ -113,9 +116,10 @@ def test_rotated_moments_match_jax(moment_inputs):
 
 
 def test_curvature_from_moments_matches_jax(moment_inputs):
-    """The port rotates with the tensor contraction; it is held against
-    the JAX default (the symbolic expansion) and the JAX contraction,
-    both to 1e-5·max (measured: 3.0e-6 and 3.6e-6 of max|K|)."""
+    """The port runs the chain through ``ops.epilogue`` (on the CPU its
+    plain version); it is held against the JAX default (the symbolic
+    expansion) and the JAX contraction, both to 1e-5·max (measured:
+    2.9e-6 and 2.5e-6 of max|K|, 3.6e-6 of max|H²|)."""
     centered, _, sigma, m = moment_inputs
     near, kth = centered[:, 0], centered[:, -1]
     curv_t, n_t = tmom.curvature_from_moments(_t(m), _t(sigma), _t(near),
@@ -132,14 +136,63 @@ def test_curvature_from_moments_matches_jax(moment_inputs):
                                    atol=1e-5)
 
 
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
 def test_chunked_epilogue_matches_unchunked(moment_inputs):
+    """``curvature_from_moments`` is ``epilogue_plain`` on the (rows, 48)
+    stats built by hand from its operands (moments in columns 0:35, σ in
+    38, the nearest and kth offsets in 39:42 and 42:45), bit for bit;
+    ``_chunked`` is the same at any ``chunk``, and so are both over two
+    leading axes."""
     centered, _, sigma, m = moment_inputs
     args = (_t(m), _t(sigma), _t(centered[:, 0]), _t(centered[:, -1]))
-    full, n_f = tmom.curvature_from_moments(*args)
-    chunked, n_c = tmom.curvature_from_moments_chunked(*args, chunk=96)
-    for a, b in zip(full, chunked):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(n_f, n_c, rtol=1e-6, atol=1e-6)
+    rows = m.shape[0]
+    stats = torch.zeros(rows, 48)
+    stats[:, :35], stats[:, 38] = args[0], args[1]
+    stats[:, 39:42], stats[:, 42:45] = args[2], args[3]
+    want = epilogue_plain(stats)
+
+    def flat(curv, n):
+        return torch.cat([torch.stack(list(curv), -1), n], -1).reshape(-1, 8)
+
+    got = [tmom.curvature_from_moments(*args),
+           tmom.curvature_from_moments_chunked(*args),
+           tmom.curvature_from_moments_chunked(*args, chunk=96)]
+    lead = (3, rows // 3)
+    two = [a.reshape(lead + a.shape[1:]) for a in args]
+    for curv, n in (tmom.curvature_from_moments(*two),
+                    tmom.curvature_from_moments_chunked(*two, chunk=1)):
+        assert curv.K.shape == lead and n.shape == lead + (3,)
+        got.append((curv, n))
+    for curv, n in got:
+        assert torch.equal(_bits(flat(curv, n)), _bits(want))
+
+
+def test_curvature_from_moments_float64(moment_inputs):
+    """float64 operands take the plain version in float64 and keep their
+    dtype; the result is the einsum chain's (``covariance_from_moments``
+    → ``smallest_eigvec3`` → sign fix → ``rodrigues_to_z`` →
+    ``rotated_moments`` → ``fit_quadratic_from_moments`` →
+    ``explicit_curvatures``) in float64 to 1e-9·max|x|."""
+    centered, _, sigma, m = moment_inputs
+    m64, s64, near, kth = (torch.from_numpy(np.asarray(a, np.float64))
+                           for a in (m, sigma, centered[:, 0],
+                                     centered[:, -1]))
+    curv, n = tmom.curvature_from_moments(m64, s64, near, kth)
+    assert n.dtype == torch.float64
+    assert all(c.dtype == torch.float64 for c in curv)
+    _, ref_n = smallest_eigvec3(tmom.covariance_from_moments(m64))
+    flip = torch.sum(ref_n * (kth - near), dim=-1) < 0.0
+    ref_n = torch.where(flip[:, None], -ref_n, ref_n)
+    S = tmom.rotated_moments(m64, rodrigues_to_z(ref_n))
+    ref = explicit_curvatures(tmom.fit_quadratic_from_moments(
+        S, m64[:, 0], s64))
+    for a, b in zip(curv, ref):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-9 * float(b.abs().max()))
+    torch.testing.assert_close(n, ref_n, rtol=0, atol=1e-9)
 
 
 # ---- (b) the kernel's plain version ---------------------------------------

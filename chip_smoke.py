@@ -1343,10 +1343,11 @@ def vertex_curvature_phase(label, verts, counters, none):
     per, err = select_vs_plain(cellknn, grid, cellknn.compact_cells(grid, mc),
                                spec, k)
     del grid
+    n_sel = cellknn.list_select_launches(spec)
     res, walls, launches = drive(
         lambda: fast_curvature(cloud, k), f"fast_curvature k={k} mesh vertices",
-        counters, {**none, "select_coords": len(spec)},
-        want_by_k={"select_coords": {k: len(spec)}})
+        counters, {**none, "select_coords": n_sel},
+        want_by_k={"select_coords": {k: n_sel}})
     accuracy(res, cloud, verts, k, 1.5e-3)
     wall = statistics.median(walls[1:])
     log(f"[{label}] fast_curvature k={k}, 1000x1000 torus mesh vertices: warm "
@@ -1550,14 +1551,15 @@ def mesh_path_phase(label, pts, counters, none):
     check(engine == "list", f"mesh vertices k={K_LIST} run the list engine")
     log(f"vertex curvature k={K_LIST} on the BPA mesh's smoothed vertices: "
         f"{len(spec)} buckets {[tuple(s) for s in spec]}")
+    n_sel = cellknn.list_select_launches(spec)
     want = {**none, "moments": len(spec_m), "epilogue": 1,
-            "select_rows": len(spec_v) + 1, "select_coords": len(spec)}
+            "select_rows": len(spec_v) + 1, "select_coords": n_sel}
     log(f"mesh path launches: {launches}; select_rows by k "
         f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}")
     check(launches == want, f"mesh path launches {launches}, want {want}")
     check(by_k["select_rows"] == {kv: len(spec_v), kc: 1},
           f"select_rows by k {by_k['select_rows']}")
-    check(by_k["select_coords"] == {K_LIST: len(spec)},
+    check(by_k["select_coords"] == {K_LIST: n_sel},
           f"select_coords by k {by_k['select_coords']}")
     per, err = select_vs_plain(cellknn, grid, cellknn.compact_cells(grid, mc),
                                spec, K_LIST)
@@ -1616,6 +1618,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     from pct_tpu_torch.core import from_numpy
     from pct_tpu_torch.io import write_ply
     from pct_tpu_torch.mesh import mesh_energies
+    from pct_tpu_torch.neighbors import cellknn
     from pct_tpu_torch.pipeline import fast_curvature
     from pct_tpu_torch.shapes import analytic_area, analytic_energies
     from pct_tpu_torch.validate import run_scans, run_sweep, validate_cloud
@@ -1696,15 +1699,16 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     check(d_str <= 1e-3 * mass,
           "sweep stretching within 1e-3 sum |K|_f A_f of phase 8b")
     spec_v = vertex_buckets(mesh.vertices, K_LIST)
+    n_sel = cellknn.list_select_launches(spec_v)
     want = {**none, "moments": n_mom, "epilogue": 1,
-            "select_rows": n_voters + 1, "select_coords": len(spec_v)}
+            "select_rows": n_voters + 1, "select_coords": n_sel}
     log(f"sweep row launches: {launches}; select_rows by k "
         f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}"
         f" (the row's smoothed vertices: {len(spec_v)} buckets)")
     check(launches == want, f"sweep row launches {launches}, want {want}")
     check(by_k["select_rows"] == {kv: n_voters, kc: 1},
           f"sweep select_rows by k {by_k['select_rows']}")
-    check(by_k["select_coords"] == {K_LIST: len(spec_v)},
+    check(by_k["select_coords"] == {K_LIST: n_sel},
           f"sweep select_coords by k {by_k['select_coords']}")
     del meshes, mesh, seen
     t_cols = {f"t_{s}": row[f"t_{s}"] for s in STAGE_KEYS}
@@ -1724,7 +1728,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     torch.cuda.synchronize()
     wall_b = time.perf_counter() - t0
     launches, _ = read_counts(counters)
-    want = {**none, "select_coords": n20}
+    want = {**none, "select_coords": cellknn.list_select_launches(spec20)}
     log(f"[{label}] validate_cloud(auto_k=True, use_mesh=False, k="
         f"{K_LIST}), 1M torus: converged k {res.converged_k} (study kmax "
         f"{res.study_kmax}, converged fraction {res.converged_fraction}), "
@@ -1833,7 +1837,12 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
         sharded_curvature,
         slab_curvature_unsorted,
     )
-    from pct_tpu_torch.distributed.slab import best_axis_order
+    from pct_tpu_torch.distributed.slab import (
+        best_axis_order,
+        probe_slab_halo,
+    )
+    from pct_tpu_torch.neighbors.cellknn import (all_points_spec,
+                                                 list_select_launches)
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.pipeline import fused_curvature
     from pct_tpu_torch.pipeline.fused import SPLIT_TO, plan_engine
@@ -1857,7 +1866,8 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
               "engine")
         kw = dict(bucket_spec=spec, max_cells=mc, engine=engine,
                   split=(SPLIT_TO, factor))
-        want = ({**none, "select_coords": len(spec)} if engine == "list"
+        want = ({**none, "select_coords": list_select_launches(spec)}
+                if engine == "list"
                 else {**none, "moments": len(spec), "epilogue": 1})
         res, w, got = drive(
             lambda: sharded_curvature(mesh, cloud.points, n, cell, k, **kw),
@@ -1887,12 +1897,18 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
         del res, ref
 
     # --- 10c. the slab path: probed halo, then the distributed sort ---
+    order = best_axis_order(cloud.points, n)
+    cell = estimate_cell_size(cloud.points, n, K_LIST)
+    cap = cloud.points.shape[0]
+    halo = probe_slab_halo(build_grid(cloud.points[:, list(order)], n, cell),
+                           1)
     outs = {}
     for tag, kw in (("10c", {}), ("10c_sort", {"distributed_sort": True})):
         out, w, got = drive(
             lambda: slab_curvature_unsorted(mesh, cloud, K_LIST, **kw),
             f"{tag} slab_curvature_unsorted k={K_LIST}", counters,
-            {**none, "select_coords": 1})
+            {**none, "select_coords": list_select_launches(
+                all_points_spec(cap + 2 * halo, K_LIST)[0])})
         launches[tag], walls[tag], outs[tag] = got, w, out
         log(f"[{label}] {tag} slab_curvature_unsorted k={K_LIST} {kw}: warm "
             f"wall {statistics.median(w[1:]):.4f} s/call (cold {w[0]:.3f} s)")
@@ -1902,13 +1918,12 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
         (*curv_r, nrm_r, ex_r), (*curv_d, nrm_d, ex_d))),
         "10c: the distributed sort's slab result bit-identical to the "
         "replicated sort's")
-    order = best_axis_order(cloud.points, n)
-    cell = estimate_cell_size(cloud.points, n, K_LIST)
     single, w_ref, _ = drive(
         lambda: fused_curvature(cloud.points[:, list(order)], n, cell,
                                 K_LIST),
         f"10c un-bucketed fused_curvature k={K_LIST}", counters,
-        {**none, "select_coords": 1})
+        {**none, "select_coords": list_select_launches(
+            all_points_spec(cap, K_LIST)[0])})
     e_s, e_1 = ex_r[:n], single.exact[:n]
     K_s, K_1 = curv_r.K[:n], single.curv.K[:n]
     close = torch.isclose(K_s, K_1, rtol=1e-5, atol=1e-7)
@@ -2923,15 +2938,17 @@ def huge_k_phase(label, cloud, pts, counters, none):
     torch.cuda.empty_cache()
 
     cell = estimate_cell_size(cloud.points, n, k)
+    n_sel = cellknn.list_select_launches(probe)
     fl, out["walls"]["fused_curvature list"], _ = drive(
         lambda: fused_curvature(cloud.points, n, cell, k, bucket_spec=probe,
                                 max_cells=mc, engine="list"),
         f"fused_curvature(engine='list') k={k}", counters,
-        {**none, "select_coords": len(probe)}, warm=1,
-        want_by_k={"select_coords": {k: len(probe)}})
+        {**none, "select_coords": n_sel}, warm=1,
+        want_by_k={"select_coords": {k: n_sel}})
     K = fl.curv.K[:n].cpu().numpy()
     out["list_err"] = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
-    log(f"fused_curvature(engine='list') k={k}: {len(probe)} buckets, exact "
+    log(f"fused_curvature(engine='list') k={k}: {len(probe)} buckets, "
+        f"{n_sel} coords launches a call, exact "
         f"{float(fl.exact[:n].float().mean()):.6f}, NaN fraction "
         f"{float(np.isnan(K).mean())}, median scale-relative K error "
         f"{out['list_err']:.4e}")
@@ -3066,7 +3083,8 @@ def main():
         cellknn, grid, cellknn.compact_cells(grid, mc20), spec20, K_LIST)
     res20, walls20, launches20 = drive(
         lambda: fast_curvature(cloud, K_LIST), f"fast_curvature k={K_LIST}",
-        counters, {**none, "select_coords": len(spec20)})
+        counters,
+        {**none, "select_coords": cellknn.list_select_launches(spec20)})
     accuracy(res20, cloud, pts, K_LIST, 1.5e-3)
     kth_vs_bruteforce(res20, cloud, K_LIST)
     del res20
@@ -3168,7 +3186,7 @@ def main():
     imp20, walls_imp20, _ = drive(
         lambda: fast_curvature(cloud, K_LIST, method="implicit"),
         f"implicit k={K_LIST}", counters,
-        {**none, "select_coords": len(spec20)})
+        {**none, "select_coords": cellknn.list_select_launches(spec20)})
     imp20_err = implicit_accuracy(imp20, cloud, pts, K_LIST, 7e-3, 1.25e-2)
     del imp20
     imp100, walls_imp100, launches_imp100 = drive(

@@ -9,7 +9,8 @@ and gloo on the CPU. The decomposition is the JAX package's:
   table (one sort each);
 - the sharded work is the cell loop: each bucket's member table is
   padded with empty cells to a multiple of the world size and every rank
-  runs its contiguous share of the rows, one kernel launch a bucket
+  runs its contiguous share of the rows, one kernel launch a bucket on
+  the moments engine and one a chunk of it on the list engine
   (``cellknn.cellwise_bucket_rows(share=)``, the same per-bucket loop
   the single-device ``fused_curvature`` runs);
 - the moments engine's epilogue runs on each rank's own rows;
@@ -23,8 +24,9 @@ same cells, so the outputs are the single-device outputs.
 Divergences from the JAX package: ``make_mesh(n_devices)`` must equal
 the world size (JAX takes a prefix of one process's devices; a process
 group spans its processes), and ``sharded_curvature`` has no
-``select_impl`` and no ``tile_cells`` (the port has one select and runs
-a bucket in one launch).
+``select_impl`` and no ``tile_cells`` (the port has one select; the
+list engine runs a bucket in chunks of ``cellknn.list_select_cells``
+cells, the moments engine in one launch).
 """
 
 from __future__ import annotations

@@ -323,6 +323,32 @@ def _tile_select(grid: GridIndex, args, k: int, capacity: int, cand_cap: int,
 
 
 _FIT_QUERIES = 1 << 17   # query slots per chunk of the in-loop fn
+# candidate slots (cells × cand_cap) per select of the list engine: the
+# fetch holds ~50 B a slot, so ~0.4 GB at most, whatever a bucket's size
+_SELECT_CANDIDATES = 8 << 20
+
+
+def _fit_cells(capacity: int) -> int:
+    """Cells one chunk of the in-loop fn takes (``_FIT_QUERIES`` query
+    slots), at least one."""
+    return max(1, _FIT_QUERIES // capacity)
+
+
+def list_select_cells(capacity: int, cand_cap: int) -> int:
+    """Cells one select of the list engine takes: whole chunks of the
+    in-loop fn, as many as fit in ``_SELECT_CANDIDATES`` candidate
+    slots, at least one."""
+    fit_cells = _fit_cells(capacity)
+    return fit_cells * max(1, _SELECT_CANDIDATES // (fit_cells * cand_cap))
+
+
+def list_select_launches(spec) -> int:
+    """Coords select launches of one list-engine call over the buckets
+    ``spec`` (``BucketSpec``s): one a chunk of ``list_select_cells``
+    cells of each bucket."""
+    return sum(-(-sp.max_cells // list_select_cells(sp.capacity,
+                                                    sp.cand_cap))
+               for sp in spec)
 
 
 def cellwise_tile_runner(grid: GridIndex, k: int, capacity: int,
@@ -330,22 +356,39 @@ def cellwise_tile_runner(grid: GridIndex, k: int, capacity: int,
     """Body of the fused cell loop for one bucket.
 
     Returns ``run(args) -> (fn outputs, each (T,C,...), exact (T,C),
-    kth (T,C), qrow (T,C), ok_q (T,C))``: one select over all T cells,
-    then ``fn(centered (t,C,k,3), found (t,C,k))`` in chunks of cells to
-    bound the fit's working memory.
+    kth (T,C), qrow (T,C), ok_q (T,C))``. The T cells run in chunks of
+    ``list_select_cells`` cells: a select over the chunk's cells, then
+    ``fn(centered (t,C,k,3), found (t,C,k))`` in chunks of
+    ``_FIT_QUERIES`` query slots. A chunk's candidates and winners are
+    freed before the next chunk's are fetched, so the working memory is
+    bounded by the chunk, not by the bucket (a bucket's (T,M,3)
+    candidates and (T,C,k,3) winners grow with its cell count, which
+    moves with the cloud). Every cell's outputs are the same as from one
+    select over all T cells.
     """
+    step = list_select_cells(capacity, cand_cap)
+    fit_step = _fit_cells(capacity)
+
     def run(args):
-        nbrs, dists, found, qpts, qrow, ok_q, exact = _tile_select(
-            grid, args, k, capacity, cand_cap)
-        step = max(1, _FIT_QUERIES // capacity)
-        parts = []
-        with _trace.span("fit"):
-            for s in range(0, nbrs.shape[0], step):
-                centered = nbrs[s:s + step] - qpts[s:s + step, :, None, :]
-                parts.append(fn(centered, found[s:s + step]))
-            out = tuple(torch.cat(xs) for xs in zip(*parts))
+        outs, rows = [], []
+        for s in range(0, args[0].shape[0], step):
+            with _trace.span("cells"):
+                chunk = tuple(a[s:s + step] for a in args)
+            nbrs, dists, found, qpts, qrow, ok_q, exact = _tile_select(
+                grid, chunk, k, capacity, cand_cap)
+            with _trace.span("fit"):
+                for f in range(0, nbrs.shape[0], fit_step):
+                    centered = (nbrs[f:f + fit_step]
+                                - qpts[f:f + fit_step, :, None, :])
+                    outs.append(fn(centered, found[f:f + fit_step]))
+            with _trace.span("scatter"):
+                # the kth column copied, so the chunk's distances go too
+                rows.append((exact & ok_q, dists[..., k - 1].contiguous(),
+                             qrow, ok_q))
+            del nbrs, dists, found, qpts, centered
         with _trace.span("scatter"):
-            return out, exact & ok_q, dists[..., k - 1], qrow, ok_q
+            return (tuple(torch.cat(xs) for xs in zip(*outs)),
+                    *(torch.cat(xs) for xs in zip(*rows)))
 
     return run
 
@@ -477,7 +520,7 @@ def cellwise_bucket_rows(grid: GridIndex, cells: CellTable, k: int,
 
     ``share`` maps each bucket's member-table args (cell_id, start,
     count, rs, run_len, run_overflow) to the rows this call runs, still
-    one kernel call a bucket (the distributed layer passes each rank's
+    one runner call a bucket (the distributed layer passes each rank's
     share of the table); None runs every row.
 
     Returns (outputs tuple of (rows, ...) after ``post_fn``, exact
@@ -525,7 +568,9 @@ def apply_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
     row for row to the outputs that are moved (the moments engine's
     stats → curvature), BEFORE the one invert-and-gather move to the
     caller's original point order. Padding slots and uncovered rows
-    stay zero. Each bucket makes one kernel call over all of its cells.
+    stay zero. Each bucket makes one kernel call over all of its cells
+    on the moments engine, one a chunk of ``list_select_cells`` cells
+    on the list engine.
 
     Returns (outputs tuple of (n, ...), exact (n,), kth_dist (n,)).
     """

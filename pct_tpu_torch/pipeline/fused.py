@@ -162,7 +162,8 @@ def fused_curvature(points: torch.Tensor, num_points: int,
     one bucket that takes every cell, of ``capacity`` query slots
     (default 2.5k + 16, 8-rounded) and ``cand_cap`` candidate slots
     (default 27·capacity) a cell (``cellknn.all_points_spec``); it
-    launches the same kernels as the bucketed route, once a call.
+    launches the same kernels as the bucketed route, for that one
+    bucket.
     ``capacity`` and ``cand_cap`` are ignored with a ``bucket_spec``.
     ``method`` is "explicit" or
     "implicit" (``implicit_mode`` "exact" or "reference");

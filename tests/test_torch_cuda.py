@@ -773,9 +773,12 @@ def _same_bits(a, b):
 def test_sharded_curvature_world_of_one_bit_identical(card_mesh, k):
     """``sharded_curvature`` on ``plan_engine``'s layout of a 20k torus is
     ``fused_curvature`` on that layout bit for bit, with one launch a
-    bucket of the engine's kernel."""
+    bucket of the moments kernel, or one a chunk of
+    ``cellknn.list_select_cells`` cells of a bucket of the coords
+    select (``cellknn.list_select_launches``)."""
     from pct_tpu_torch.core import from_numpy
     from pct_tpu_torch.distributed import sharded_curvature
+    from pct_tpu_torch.neighbors import cellknn
     from pct_tpu_torch.neighbors.grid import estimate_cell_size
     from pct_tpu_torch.ops.moments import knn_moments as mom
     from pct_tpu_torch.pipeline import fused_curvature
@@ -789,9 +792,11 @@ def test_sharded_curvature_world_of_one_bit_identical(card_mesh, k):
     kw = dict(bucket_spec=spec, max_cells=mc, engine=engine,
               split=(SPLIT_TO, factor))
     counter = knn_select_coords if engine == "list" else mom
+    launches = (cellknn.list_select_launches(spec) if engine == "list"
+                else len(spec))
     before = counter.launches
     got = sharded_curvature(card_mesh, c.points, c.num_points, cell, k, **kw)
-    assert counter.launches - before == len(spec)
+    assert counter.launches - before == launches
     want = fused_curvature(c.points, c.num_points, cell, k, **kw)
     for a, b in zip((*got.curv, got.normals, got.exact, got.kth_dist),
                     (*want.curv, want.normals, want.exact, want.kth_dist)):
@@ -801,33 +806,37 @@ def test_sharded_curvature_world_of_one_bit_identical(card_mesh, k):
 
 
 def test_slab_world_of_one_matches_fused(card_mesh):
-    """``slab_curvature_unsorted`` (probed halo, one coords launch) on the
-    20k torus: the distributed sort's result is the replicated sort's bit
-    for bit; exact equals the un-bucketed ``fused_curvature`` on the same
-    axis-permuted points and cell size, and K agrees to rtol 1e-5, atol
-    1e-7. The un-bucketed layout's default cell table is sized for a
-    surface sampled like the analytic torus (tests/test_slab.py); on the
-    perturbed torus of the tests above it overflows and certifies no
-    row, in both paths alike."""
+    """``slab_curvature_unsorted`` (probed halo, one coords launch a chunk
+    of its one bucket) on the 20k torus: the distributed sort's result is
+    the replicated sort's bit for bit; exact equals the un-bucketed
+    ``fused_curvature`` on the same axis-permuted points and cell size,
+    and K agrees to rtol 1e-5, atol 1e-7. The un-bucketed layout's
+    default cell table is sized for a surface sampled like the analytic
+    torus (tests/test_slab.py); on the perturbed torus of the tests above
+    it overflows and certifies no row, in both paths alike."""
     from pct_tpu_torch.core import from_numpy
     from pct_tpu_torch.distributed import slab_curvature_unsorted
-    from pct_tpu_torch.distributed.slab import best_axis_order
-    from pct_tpu_torch.neighbors.grid import estimate_cell_size
+    from pct_tpu_torch.distributed.slab import best_axis_order, probe_slab_halo
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.pipeline import fused_curvature
     from pct_tpu_torch.shapes import generate_shape
 
     c = from_numpy(generate_shape("torus", 20000, radius=1.0)[0],
                    device="cuda")
     n = c.num_points
+    order = best_axis_order(c.points, n)
+    cell = estimate_cell_size(c.points, n, 20)
+    halo = probe_slab_halo(build_grid(c.points[:, list(order)], n, cell), 1)
+    (sp,), _ = cellknn.all_points_spec(c.points.shape[0] + 2 * halo, 20)
+    chunks = cellknn.list_select_launches([sp])
     before = knn_select_coords.launches
     curv, nrm, ex = slab_curvature_unsorted(card_mesh, c, k=20)
-    assert knn_select_coords.launches - before == 1
+    assert knn_select_coords.launches - before == chunks
     curv_d, nrm_d, ex_d = slab_curvature_unsorted(card_mesh, c, k=20,
                                                   distributed_sort=True)
     for a, b in zip((*curv, nrm, ex), (*curv_d, nrm_d, ex_d)):
         assert _same_bits(a, b)
-    order = best_axis_order(c.points, n)
-    cell = estimate_cell_size(c.points, n, 20)
     single = fused_curvature(c.points[:, list(order)], n, cell, 20)
     assert torch.equal(ex[:n], single.exact[:n])
     assert float(ex[:n].float().mean()) == 1.0

@@ -17,9 +17,15 @@ without printing its result line:
       int64 (d² bits << 32 | m) keys of the prebuilt masked d², whose
       winners' coordinates are the kernel's) and the first design's
       time;
-   b. the main path, ``fast_curvature(k=20)``: launch counts, kNN
-      certificate, NaNs, K against the analytic torus, kth distances
-      against brute force on sampled rows;
+   b. the main path, ``fast_curvature(k=20)``: launch counts (one
+      ``list_fit`` launch a coords select), kNN certificate, NaNs, K against
+      the analytic torus, kth distances against brute force on sampled
+      rows; one more call with ``list_fit`` watched: every select's
+      kernel output against ``list_fit_plain`` on the card, bit for bit,
+      then timed beside the plain version and its bytes bound (12k + 44
+      B a row); the sharded, slab, vertex and k=1100 list calls below
+      hold the kernel to its plain version the same way (k=1100 on the
+      first 2048 rows), and the implicit k=20 call launches it never;
 4. the moments engine, k=100, on the same cloud:
    a. the moments kernel against its plain version on every bucket of
       ``fast_curvature``'s own probe: columns 35–45 bit-identical, the
@@ -328,6 +334,7 @@ HUGE_CUT_ROWS = 2                # cell rows a bucket compared past 1024
 K_SORT = 20_000                  # past the block's 16,384 shared keys
 HUGE_SORT_QUERIES = 16           # query slots a row at k = K_SORT
 HUGE_BAND_BLOCKS = 2048          # row blocks of the band at k > 1024
+HUGE_FIT_ROWS = 2048             # list_fit rows compared at k = 1100
 
 
 def log(*a):
@@ -647,6 +654,81 @@ def epilogue_vs_plain(cloud, k):
     check(int(differing.sum()) == 0,
           "epilogue kernel bit-identical to its plain version on every "
           "column of the main path's rows")
+    return rec, max_err
+
+
+LIST_FIT_ROW_BYTES = 44          # a row's query (12 B) and output (32 B),
+                                 # beside its k winners' 12 B each
+
+
+def list_fit_vs_plain(call, label, want, timed=False, max_rows=None):
+    """One more ``call()`` with the list route's ``list_fit`` watched
+    (``pipeline.fused.list_fit``, which every explicit list-engine caller
+    reaches through ``fused._list_route``): ``want`` calls, one a
+    select, and the output the call got from the kernel against
+    ``list_fit_plain`` on the card over the same winners and queries, bit
+    for bit on every column; with ``max_rows``, only the first select's
+    first ``max_rows`` rows are kept and compared. ``timed``: the kernel
+    and the plain version timed over the call's selects. Returns (record
+    of the call, max abs error)."""
+    import torch
+
+    import pct_tpu_torch.pipeline.fused as fused
+    from pct_tpu_torch.ops.list_fit import list_fit_plain
+
+    real = fused.list_fit
+    seen, chunks = [], []
+
+    def watched(nbrs, qpts):
+        out = real(nbrs, qpts)
+        chunks.append(qpts.numel() // 3)
+        if max_rows is None:
+            seen.append((nbrs.clone(), qpts.clone(), out.clone()))
+        elif not seen:
+            k = nbrs.shape[-2]
+            seen.append((nbrs.reshape(-1, k, 3)[:max_rows].clone(),
+                         qpts.reshape(-1, 3)[:max_rows].clone(),
+                         out.reshape(-1, 8)[:max_rows].clone()))
+        return out
+
+    fused.list_fit = watched
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        fused.list_fit = real
+    check(len(chunks) == want, f"{label}: {want} list_fit calls, got "
+          f"{len(chunks)}")
+    differing, max_err, rows = 0, 0.0, 0
+    for nbrs, qpts, got in seen:
+        want_out = list_fit_plain(nbrs, qpts)
+        differing += int((got.view(torch.int32)
+                          != want_out.view(torch.int32)).sum())
+        max_err = max(max_err, float((got - want_out).abs().nan_to_num(
+            0.0).max()))
+        rows += qpts.numel() // 3
+    k = seen[0][0].shape[-2]
+    log(f"list_fit kernel vs plain on {label}: {len(chunks)} selects, "
+        f"{sum(chunks)} rows, {rows} compared at k={k}, differing words "
+        f"{differing}")
+    check(differing == 0, f"{label}: list_fit kernel bit-identical to its "
+          "plain version")
+    rec = None
+    if timed:
+        nb = sum(chunks) * (12 * k + LIST_FIT_ROW_BYTES)
+        b_ms, b_by = bound(0, 0, 0, nb)
+        rec = dict(bucket=0, cells=0, capacity=0, M=0, pairs=0,
+                   rows=sum(chunks), bytes=nb, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None,
+                   ms=sum(event_ms(lambda: real(a, q), TIMED_REPS)
+                          for a, q, _ in seen),
+                   plain_ms=sum(event_ms(lambda: list_fit_plain(a, q), 1)
+                                for a, q, _ in seen))
+        log(f"list_fit kernel on {label}: {rec['ms']:.4f} ms/call over "
+            f"{len(chunks)} launches, plain {rec['plain_ms']:.2f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {12 * k + LIST_FIT_ROW_BYTES} B a row)")
+    del seen
+    torch.cuda.empty_cache()
     return rec, max_err
 
 
@@ -1346,8 +1428,10 @@ def vertex_curvature_phase(label, verts, counters, none):
     n_sel = cellknn.list_select_launches(spec)
     res, walls, launches = drive(
         lambda: fast_curvature(cloud, k), f"fast_curvature k={k} mesh vertices",
-        counters, {**none, "select_coords": n_sel},
+        counters, {**none, "select_coords": n_sel, "list_fit": n_sel},
         want_by_k={"select_coords": {k: n_sel}})
+    list_fit_vs_plain(lambda: fast_curvature(cloud, k),
+                      f"fast_curvature k={k} mesh vertices", n_sel)
     accuracy(res, cloud, verts, k, 1.5e-3)
     wall = statistics.median(walls[1:])
     log(f"[{label}] fast_curvature k={k}, 1000x1000 torus mesh vertices: warm "
@@ -1553,7 +1637,8 @@ def mesh_path_phase(label, pts, counters, none):
         f"{len(spec)} buckets {[tuple(s) for s in spec]}")
     n_sel = cellknn.list_select_launches(spec)
     want = {**none, "moments": len(spec_m), "epilogue": 1,
-            "select_rows": len(spec_v) + 1, "select_coords": n_sel}
+            "select_rows": len(spec_v) + 1, "select_coords": n_sel,
+            "list_fit": n_sel}
     log(f"mesh path launches: {launches}; select_rows by k "
         f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}")
     check(launches == want, f"mesh path launches {launches}, want {want}")
@@ -1701,7 +1786,8 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     spec_v = vertex_buckets(mesh.vertices, K_LIST)
     n_sel = cellknn.list_select_launches(spec_v)
     want = {**none, "moments": n_mom, "epilogue": 1,
-            "select_rows": n_voters + 1, "select_coords": n_sel}
+            "select_rows": n_voters + 1, "select_coords": n_sel,
+            "list_fit": n_sel}
     log(f"sweep row launches: {launches}; select_rows by k "
         f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}"
         f" (the row's smoothed vertices: {len(spec_v)} buckets)")
@@ -1728,7 +1814,8 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     torch.cuda.synchronize()
     wall_b = time.perf_counter() - t0
     launches, _ = read_counts(counters)
-    want = {**none, "select_coords": cellknn.list_select_launches(spec20)}
+    n_sel = cellknn.list_select_launches(spec20)
+    want = {**none, "select_coords": n_sel, "list_fit": n_sel}
     log(f"[{label}] validate_cloud(auto_k=True, use_mesh=False, k="
         f"{K_LIST}), 1M torus: converged k {res.converged_k} (study kmax "
         f"{res.study_kmax}, converged fraction {res.converged_fraction}), "
@@ -1805,6 +1892,9 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
             "epilogue": {"sweep_mesh": sweep_launches["epilogue"],
                          "scans_k100_two_runs": launches["epilogue"]},
             "select_rows": {"sweep_mesh": sweep_launches["select_rows"]},
+            "list_fit": {"sweep_mesh": sweep_launches["list_fit"],
+                         "validate_mesh_free_k20":
+                             validate_launches["list_fit"]},
             "select_pos": {}, "band_select": {}}
 
 
@@ -1866,12 +1956,18 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
               "engine")
         kw = dict(bucket_spec=spec, max_cells=mc, engine=engine,
                   split=(SPLIT_TO, factor))
-        want = ({**none, "select_coords": list_select_launches(spec)}
+        want = ({**none, "select_coords": list_select_launches(spec),
+                 "list_fit": list_select_launches(spec)}
                 if engine == "list"
                 else {**none, "moments": len(spec), "epilogue": 1})
         res, w, got = drive(
             lambda: sharded_curvature(mesh, cloud.points, n, cell, k, **kw),
             f"{tag} sharded_curvature k={k}", counters, want)
+        if engine == "list":
+            list_fit_vs_plain(
+                lambda: sharded_curvature(mesh, cloud.points, n, cell, k,
+                                          **kw),
+                f"{tag} sharded_curvature k={k}", want["list_fit"])
         launches[tag], walls[tag] = got, w
         ref, w_ref, _ = drive(
             lambda: fused_curvature(cloud.points, n, cell, k, **kw),
@@ -1903,12 +1999,16 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
     halo = probe_slab_halo(build_grid(cloud.points[:, list(order)], n, cell),
                            1)
     outs = {}
+    slab_spec = all_points_spec(cap + 2 * halo, K_LIST)[0]
+    list_fit_vs_plain(lambda: slab_curvature_unsorted(mesh, cloud, K_LIST),
+                      f"10c slab_curvature_unsorted k={K_LIST}",
+                      list_select_launches(slab_spec))
     for tag, kw in (("10c", {}), ("10c_sort", {"distributed_sort": True})):
         out, w, got = drive(
             lambda: slab_curvature_unsorted(mesh, cloud, K_LIST, **kw),
             f"{tag} slab_curvature_unsorted k={K_LIST}", counters,
-            {**none, "select_coords": list_select_launches(
-                all_points_spec(cap + 2 * halo, K_LIST)[0])})
+            {**none, "select_coords": list_select_launches(slab_spec),
+             "list_fit": list_select_launches(slab_spec)})
         launches[tag], walls[tag], outs[tag] = got, w, out
         log(f"[{label}] {tag} slab_curvature_unsorted k={K_LIST} {kw}: warm "
             f"wall {statistics.median(w[1:]):.4f} s/call (cold {w[0]:.3f} s)")
@@ -1923,7 +2023,8 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
                                 K_LIST),
         f"10c un-bucketed fused_curvature k={K_LIST}", counters,
         {**none, "select_coords": list_select_launches(
-            all_points_spec(cap, K_LIST)[0])})
+            all_points_spec(cap, K_LIST)[0]),
+         "list_fit": list_select_launches(all_points_spec(cap, K_LIST)[0])})
     e_s, e_1 = ex_r[:n], single.exact[:n]
     K_s, K_1 = curv_r.K[:n], single.curv.K[:n]
     close = torch.isclose(K_s, K_1, rtol=1e-5, atol=1e-7)
@@ -2943,8 +3044,13 @@ def huge_k_phase(label, cloud, pts, counters, none):
         lambda: fused_curvature(cloud.points, n, cell, k, bucket_spec=probe,
                                 max_cells=mc, engine="list"),
         f"fused_curvature(engine='list') k={k}", counters,
-        {**none, "select_coords": n_sel}, warm=1,
+        {**none, "select_coords": n_sel, "list_fit": n_sel}, warm=1,
         want_by_k={"select_coords": {k: n_sel}})
+    list_fit_vs_plain(
+        lambda: fused_curvature(cloud.points, n, cell, k, bucket_spec=probe,
+                                max_cells=mc, engine="list"),
+        f"fused_curvature(engine='list') k={k}", n_sel,
+        max_rows=HUGE_FIT_ROWS)
     K = fl.curv.K[:n].cpu().numpy()
     out["list_err"] = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
     log(f"fused_curvature(engine='list') k={k}: {len(probe)} buckets, "
@@ -3019,6 +3125,7 @@ def main():
     from pct_tpu_torch.ops import build
     from pct_tpu_torch.neighbors import knn_cloud_grid
     from pct_tpu_torch.ops.epilogue import moments_epilogue
+    from pct_tpu_torch.ops.list_fit import list_fit
     from pct_tpu_torch.ops.moments import knn_moments
     from pct_tpu_torch.ops.select import (
         knn_select,
@@ -3068,7 +3175,8 @@ def main():
                 "band_select": knn_band_select,
                 "moments_split": moments_variant,
                 "select_coords_mxu": select_coords_mxu,
-                "moments_like": moments_like, "epilogue": moments_epilogue}
+                "moments_like": moments_like, "epilogue": moments_epilogue,
+                "list_fit": list_fit}
     none = {name: 0 for name in counters}
 
     # --- 3. list engine, k=20 ---
@@ -3084,7 +3192,11 @@ def main():
     res20, walls20, launches20 = drive(
         lambda: fast_curvature(cloud, K_LIST), f"fast_curvature k={K_LIST}",
         counters,
-        {**none, "select_coords": cellknn.list_select_launches(spec20)})
+        {**none, "select_coords": cellknn.list_select_launches(spec20),
+         "list_fit": cellknn.list_select_launches(spec20)})
+    lf = list_fit_vs_plain(lambda: fast_curvature(cloud, K_LIST),
+                           f"fast_curvature k={K_LIST}",
+                           cellknn.list_select_launches(spec20), timed=True)
     accuracy(res20, cloud, pts, K_LIST, 1.5e-3)
     kth_vs_bruteforce(res20, cloud, K_LIST)
     del res20
@@ -3183,10 +3295,13 @@ def main():
     check(not bool(pipe20.curv.K[:n].isnan().any()), "pipeline: no NaN")
     del pipe20, fast20
 
-    imp20, walls_imp20, _ = drive(
+    imp20, walls_imp20, launches_imp20 = drive(
         lambda: fast_curvature(cloud, K_LIST, method="implicit"),
         f"implicit k={K_LIST}", counters,
         {**none, "select_coords": cellknn.list_select_launches(spec20)})
+    log(f"implicit k={K_LIST}: {launches_imp20['list_fit']} list_fit "
+        f"launches (the eager chain), {launches_imp20['select_coords']} "
+        "coords launches")
     imp20_err = implicit_accuracy(imp20, cloud, pts, K_LIST, 7e-3, 1.25e-2)
     del imp20
     imp100, walls_imp100, launches_imp100 = drive(
@@ -3306,6 +3421,16 @@ def main():
                                 "(its operations are not counted)")
     rows[-1]["library_call"] = ("none: the eager einsum chain it replaces "
                                 "is not kept")
+    lf_rec, lf_err = lf
+    rows.append(kernel_row("list_fit", "pct_tpu_torch/csrc/list_fit.cu",
+                           "pct_tpu/pipeline/fused.py:57",
+                           launches20["list_fit"], lf_err, [lf_rec],
+                           flops=0))
+    rows[-1]["rows"] = lf_rec["rows"]
+    rows[-1]["bound_counts"] = (f"bytes only, 12k + {LIST_FIT_ROW_BYTES} B "
+                                "a row (its operations are not counted)")
+    rows[-1]["library_call"] = ("none: the eager neighbourhood chain it "
+                                "replaces is the implicit method's")
     rows[1]["max_err_ratio"] = mom_ratio
     # k=100: the rows kernel on the implicit k=100 path (knn_cloud_grid's
     # k=100 buckets), the positions kernel on the same operands

@@ -60,7 +60,7 @@ from pct_tpu_torch.neighbors.grid import (
     estimate_cell_size,
     linearize,
 )
-from pct_tpu_torch.pipeline.fused import _check_slice, _list_fn
+from pct_tpu_torch.pipeline.fused import _check_slice, _list_route
 
 _X_RIGHT_END = 2**30 + 2      # past every cell id: no right neighbour
 
@@ -200,9 +200,9 @@ def slab_curvature(mesh: DeviceMesh, points: torch.Tensor, num_points: int,
         cell_size=grid.cell_size, dims=grid.dims,
         num_valid=int(torch.sum(local_ids != PAD_ID)))
     spec, mc = all_points_spec(local_n, k, capacity, None, cand_cap)
+    fn, post_fn = _list_route(method, implicit_mode)
     (*curv_l, normal_l), exact_l, kth_l = apply_cellwise_bucketed(
-        lgrid, compact_cells(lgrid, mc), k, _list_fn(method, implicit_mode),
-        spec)
+        lgrid, compact_cells(lgrid, mc), k, fn, spec, post_fn=post_fn)
 
     # keep the slab's own rows; the id-range certificate: every cell id
     # strictly inside (x_left, x_right) is complete in slab + halo

@@ -358,16 +358,17 @@ def cellwise_tile_runner(grid: GridIndex, k: int, capacity: int,
     Returns ``run(args) -> (fn outputs, each (T,C,...), exact (T,C),
     kth (T,C), qrow (T,C), ok_q (T,C))``. The T cells run in chunks of
     ``list_select_cells`` cells: a select over the chunk's cells, then
-    ``fn(centered (t,C,k,3), found (t,C,k))`` in chunks of
-    ``_FIT_QUERIES`` query slots. A chunk's candidates and winners are
-    freed before the next chunk's are fetched, so the working memory is
-    bounded by the chunk, not by the bucket (a bucket's (T,M,3)
-    candidates and (T,C,k,3) winners grow with its cell count, which
-    moves with the cloud). Every cell's outputs are the same as from one
-    select over all T cells.
+    ``fn(nbrs (t,C,k,3) winner coordinates, qpts (t,C,3))``, which
+    returns a list of output tuples over consecutive runs of the chunk's
+    cells (one tuple, or one a ``_fit_cells`` run
+    where the fit keeps per-slot intermediates). A chunk's candidates
+    and winners are freed before the next chunk's are fetched, so the
+    working memory is bounded by the chunk, not by the bucket (a
+    bucket's (T,M,3) candidates and (T,C,k,3) winners grow with its cell
+    count, which moves with the cloud). Every cell's outputs are the
+    same as from one select over all T cells.
     """
     step = list_select_cells(capacity, cand_cap)
-    fit_step = _fit_cells(capacity)
 
     def run(args):
         outs, rows = [], []
@@ -377,15 +378,12 @@ def cellwise_tile_runner(grid: GridIndex, k: int, capacity: int,
             nbrs, dists, found, qpts, qrow, ok_q, exact = _tile_select(
                 grid, chunk, k, capacity, cand_cap)
             with _trace.span("fit"):
-                for f in range(0, nbrs.shape[0], fit_step):
-                    centered = (nbrs[f:f + fit_step]
-                                - qpts[f:f + fit_step, :, None, :])
-                    outs.append(fn(centered, found[f:f + fit_step]))
+                outs.extend(fn(nbrs, qpts))
             with _trace.span("scatter"):
                 # the kth column copied, so the chunk's distances go too
                 rows.append((exact & ok_q, dists[..., k - 1].contiguous(),
                              qrow, ok_q))
-            del nbrs, dists, found, qpts, centered
+            del nbrs, dists, found, qpts
         with _trace.span("scatter"):
             return (tuple(torch.cat(xs) for xs in zip(*outs)),
                     *(torch.cat(xs) for xs in zip(*rows)))
@@ -561,9 +559,10 @@ def apply_cellwise_bucketed(grid: GridIndex, cells: CellTable, k: int,
 
     ``runner`` (default ``cellwise_tile_runner``, the list engine) builds
     each bucket's body from (grid, k, capacity, cand_cap, fn). With the
-    list engine, ``fn(centered (T,C,k,3), found (T,C,k)) -> tuple of
-    float32 (T,C,...)`` sees neighborhoods taken straight from the
-    select's winner coordinates; ``moments_tile_runner`` ignores ``fn``.
+    list engine, ``fn(nbrs (T,C,k,3), qpts (T,C,3)) -> list of tuples of
+    float32 (t,C,...)`` over consecutive cells sees a select's winner
+    coordinates and their queries;
+    ``moments_tile_runner`` ignores ``fn``.
     ``post_fn`` maps the concatenated flat outputs, in tile order,
     row for row to the outputs that are moved (the moments engine's
     stats → curvature), BEFORE the one invert-and-gather move to the

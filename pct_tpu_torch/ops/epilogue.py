@@ -110,6 +110,14 @@ def _eigvec_min(a00, a01, a02, a11, a12, a22):
             torch.where(ok, v[2], 1.0))
 
 
+def _sign_fix(n, far, near):
+    """The sign fix (the reference's pts[-1] − pts[0]): n, each component
+    negated where its dot with far − near is negative."""
+    d = [f - c for f, c in zip(far, near)]
+    flip = _sum(n[0] * d[0], n[1] * d[1], n[2] * d[2]) < 0.0
+    return tuple(torch.where(flip, -x, x) for x in n)
+
+
 def _rotation(nx, ny, nz):
     """``rodrigues_to_z``'s rows (R n = +z; identity where |n × z| <
     1e-8, also for n = −z)."""
@@ -187,10 +195,15 @@ def _normal_equations(S, m0):
         for j, (aj, bj) in enumerate(_PHI[i:], start=i):
             G[i][j] = G[j][i] = scaled(ai + aj, bi + bj, 0)
     rhs = [scaled(ai, bi, 1) for ai, bi in _PHI]
+    _add_ridge(G)
+    return G, rhs, ia, ib
+
+
+def _add_ridge(G):
+    """The relative ridge 1e-7·trace/6 on the 6×6 G's diagonal, in place."""
     ridge = _div(_RIDGE * _sum(*(G[j][j] for j in range(6))), 6.0)
     for j in range(6):
         G[j][j] = G[j][j] + ridge
-    return G, rhs, ia, ib
 
 
 def _solve(G, rhs):
@@ -254,12 +267,15 @@ def epilogue_plain(stats: torch.Tensor) -> torch.Tensor:
                              cov((1, 0, 1), 0, 2), cov((0, 2, 0), 1, 1),
                              cov((0, 1, 1), 1, 2), cov((0, 0, 2), 2, 2))
     # the sign fix on kth − nearest (the reference's pts[-1] − pts[0])
-    d = [kth[:, a] - near[:, a] for a in range(3)]
-    flip = _sum(nx * d[0], ny * d[1], nz * d[2]) < 0.0
-    nx, ny, nz = (torch.where(flip, -x, x) for x in (nx, ny, nz))
+    nx, ny, nz = _sign_fix((nx, ny, nz), kth.unbind(1), near.unbind(1))
     S = _rotated(m, _rotation(nx, ny, nz))
     A, B, C, D, E = _fit(S, m[0], sigma)
-    # explicit_curvatures
+    return torch.stack([*_curvatures(A, B, C, D, E), nx, ny, nz], dim=1)
+
+
+def _curvatures(A, B, C, D, E):
+    """``explicit_curvatures`` of the Monge coefficients -> (K, H, k1, k2,
+    H²)."""
     fxx, fyy = 2.0 * A, 2.0 * B
     fx2, fy2 = D * D, E * E
     w = (1.0 + fx2) + fy2
@@ -267,7 +283,7 @@ def epilogue_plain(stats: torch.Tensor) -> torch.Tensor:
     num = ((1.0 + fx2) * fyy - ((2.0 * D) * E) * C) + (1.0 + fy2) * fxx
     H = _div(num, 2.0 * torch.pow(w, 1.5))
     disc = torch.sqrt(torch.clamp_min(H * H - K, 0.0))
-    return torch.stack([K, H, H + disc, H - disc, H * H, nx, ny, nz], dim=1)
+    return K, H, H + disc, H - disc, H * H
 
 
 def _check(stats: torch.Tensor):

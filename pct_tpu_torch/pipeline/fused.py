@@ -6,8 +6,10 @@ of ``apply_cellwise_bucketed``); only the per-point outputs are moved,
 directly to the caller's point order.
 
 - The list engine takes each query's neighborhood straight from the
-  select's winner coordinates and runs frames → fit → curvature on it,
-  for the explicit (Monge patch) or the implicit (quadric) method.
+  select's winner coordinates and runs frames → fit → curvature on it:
+  for the explicit (Monge patch) method as one kernel a select
+  (``ops.list_fit.list_fit``), for the implicit (quadric) method as the
+  eager chain.
 - The moments engine (``engine="moments"``; what ``fast_curvature``
   runs for the explicit method at k >= 64, and at smaller k when
   ``list_engine_ok`` refuses a bucket) reduces each neighborhood to 35
@@ -29,6 +31,7 @@ import torch
 from pct_tpu_torch.core.device import resolve_device
 from pct_tpu_torch.curvature.explicit import Curvatures
 from pct_tpu_torch.neighbors.cellknn import (
+    _fit_cells,
     _scatter_outputs,
     all_points_spec,
     cellwise_bucket_rows,
@@ -43,6 +46,7 @@ from pct_tpu_torch.neighbors.grid import GridIndex, build_grid, estimate_cell_si
 from pct_tpu_torch.neighbors.knn import knn_cloud_grid
 from pct_tpu_torch.ops import build
 from pct_tpu_torch.ops.epilogue import moments_epilogue
+from pct_tpu_torch.ops.list_fit import list_fit
 from pct_tpu_torch.pipeline.curvature_pipeline import (
     neighborhood_curvature,
     pointwise_curvature,
@@ -60,18 +64,44 @@ class FusedResult(NamedTuple):
     kth_dist: torch.Tensor    # (N,) distance to the kth neighbor
 
 
-def _list_fn(method: str, implicit_mode: str):
-    """The list engine's chain over (..., k, 3) neighborhoods -> (K, H,
-    k1, k2, H², normals). Like the reference, all k slots are used
-    unconditionally (``found`` is ignored; rows are audited through the
-    exactness certificate)."""
-    def fn(centered: torch.Tensor, found: torch.Tensor):
-        del found
-        curv, normal, _ = neighborhood_curvature(centered, method,
-                                                 implicit_mode)
-        return (*curv, normal)
+@_trace.stage("scatter")
+def _fit_columns(out):
+    """The explicit list route's ``post_fn``: its one (rows, 8) output
+    (``ops.list_fit``'s layout) -> (K, H, k1, k2, H², normals), views of
+    it."""
+    (res,) = out
+    return (*res[:, :5].unbind(1), res[:, 5:])
 
-    return fn
+
+def _list_route(method: str, implicit_mode: str):
+    """The list engine's chain: (fn, post_fn) of ``cellknn.
+    cellwise_bucket_rows``. ``fn`` maps a select's winners (t, C, k, 3)
+    and queries (t, C, 3) to a list of output tuples; like the reference,
+    all k slots are used unconditionally (rows are audited through the
+    exactness certificate). The explicit method is
+    ``ops.list_fit.list_fit``, one kernel launch a select on the card and
+    one (t, C, 8) output, which ``post_fn`` splits into (K, H, k1, k2,
+    H², normals) once every select is concatenated. The implicit method
+    runs the eager chain on the query-centred neighbourhoods in runs of
+    ``_FIT_QUERIES`` query slots, which bound its per-slot intermediates,
+    those six outputs a run."""
+    if method == "explicit":
+        def fn(nbrs: torch.Tensor, qpts: torch.Tensor):
+            return [(list_fit(nbrs, qpts),)]
+
+        return fn, _fit_columns
+
+    def fn(nbrs: torch.Tensor, qpts: torch.Tensor):
+        step = _fit_cells(qpts.shape[1])
+        outs = []
+        for f in range(0, nbrs.shape[0], step):
+            curv, normal, _ = neighborhood_curvature(
+                nbrs[f:f + step] - qpts[f:f + step, :, None, :], method,
+                implicit_mode)
+            outs.append((*curv, normal))
+        return outs
+
+    return fn, None
 
 
 @functools.cache
@@ -80,6 +110,13 @@ def _build_moments_route():
     its epilogue, in one parallel nvcc batch (on a cold build cache each
     op's loader would otherwise build its own in turn)."""
     build.build_all(["moments", "epilogue"])
+
+
+@functools.cache
+def _build_list_route():
+    """Compile the explicit list route's two kernels, the coords select
+    and the list fit, in one parallel nvcc batch."""
+    build.build_all(["select_coords", "list_fit"])
 
 
 @_trace.stage("fit")
@@ -118,9 +155,11 @@ def _fused_rows(grid: GridIndex, k: int, max_cells: int, bucket_spec,
         return cellwise_bucket_rows(
             grid, cells, k, None, bucket_spec, runner=moments_tile_runner,
             post_fn=_moments_epilogue, share=share)
-    return cellwise_bucket_rows(
-        grid, cells, k, _list_fn(method, implicit_mode), bucket_spec,
-        share=share)
+    if grid.sorted_points.is_cuda and method == "explicit":
+        _build_list_route()
+    fn, post_fn = _list_route(method, implicit_mode)
+    return cellwise_bucket_rows(grid, cells, k, fn, bucket_spec,
+                                post_fn=post_fn, share=share)
 
 
 def _fused_on_grid(grid: GridIndex, k: int, max_cells: int, bucket_spec,

@@ -1181,3 +1181,160 @@ def test_fused_fit_is_one_launch_and_no_cublas(torus_1m_epilogue):
 
     assert sum("epilogue_kernel" in n for n in kernels["call"]) == 1
     assert sorted(blas(kernels["call"])) == sorted(blas(kernels["cell_size"]))
+
+
+# ---- the list engine's fit kernel -------------------------------------------
+
+def _list_fit_rows(seed, k, rows=2_500):
+    """(nbrs (rows, k, 3), qpts (rows, 3)), ``rows`` not a multiple of any
+    block: Gaussian neighbourhoods about their queries, flattened along
+    z and distance-sorted, at scales from 1e-3 to 1e2, and 5 all-zero
+    padding rows."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((rows, 3)).astype(np.float32)
+    off = rng.standard_normal((rows, k, 3)) * np.array([1.0, 0.7, 0.1])
+    off *= 10.0 ** rng.uniform(-3, 2, (rows, 1, 1))
+    off = off[np.arange(rows)[:, None],
+              np.argsort((off ** 2).sum(-1), axis=1, kind="stable")]
+    nbrs = (q[:, None, :] + off).astype(np.float32)
+    nbrs[-5:], q[-5:] = 0.0, 0.0
+    return torch.from_numpy(nbrs), torch.from_numpy(q)
+
+
+def _list_fit_guarded():
+    """The CPU tests' guarded rows (tests/test_torch_list_fit.py), each
+    (1, k, 3) about a query at the origin: padding, a lattice line whose
+    last pivot dies, the isotropic +z fallback, the paraboloid with its
+    normal on +z and on -z (the identity rotation)."""
+    g = np.arange(-2, 3) / 4.0
+    x, y = (a.ravel() for a in np.meshgrid(g, g))
+    line = np.zeros((16, 3))
+    line[:, 0] = np.resize([0.5, -0.5], 16)
+    e = 0.5 * np.eye(3)
+    iso = np.tile(np.stack([e[0], e[1], e[2], -e[1], -e[2], -e[0]]), (4, 1))
+    par = np.stack([x, y, (x * x + y * y) / 2], 1)
+    par = par[np.argsort(x * x + y * y, kind="stable")]
+    return {"padding": np.zeros((25, 3)), "collinear": line,
+            "isotropic": iso, "plus_z": par, "minus_z": par[::-1].copy()}
+
+
+@pytest.mark.parametrize("k", [1, 16, 20, 100, 127, 128, 200, 1100])
+def test_list_fit_kernel_bit_identical(cuda, k):
+    """The kernel against ``list_fit_plain`` run on the card, every
+    column's bits, in the staged variant (k <= 127: 128, 64 or 32 rows a
+    block) and the streamed one (k >= 128, as the k=1100 list calls), on
+    a 16-byte-aligned and an unaligned source."""
+    from pct_tpu_torch.ops.list_fit import (
+        list_fit,
+        list_fit_layout,
+        list_fit_plain,
+    )
+
+    nbrs, q = _list_fit_rows(24 + k, k, rows=2_500 if k <= 200 else 300)
+    nbrs, q = nbrs.to(cuda), q.to(cuda)
+    assert (list_fit_layout(k) > 0) == (k <= 127)
+    buf = torch.empty(nbrs.numel() + 1, device=cuda)
+    buf[1:] = nbrs.reshape(-1)
+    for src in (nbrs, buf[1:].view(nbrs.shape)):
+        before = list_fit.launches
+        got = list_fit(src, q)
+        torch.cuda.synchronize()
+        assert list_fit.launches == before + 1
+        want = list_fit_plain(src, q)
+        differing = (got.view(torch.int32) != want.view(torch.int32)).sum(0)
+        assert differing.sum() == 0, differing.tolist()
+    assert torch.isfinite(want[-5:]).all()
+    assert list_fit(nbrs[:0], q[:0]).shape == (0, 8)
+
+
+@pytest.mark.parametrize("name", sorted(_list_fit_guarded()))
+def test_list_fit_kernel_guarded_rows(cuda, name):
+    from pct_tpu_torch.ops.list_fit import list_fit, list_fit_plain
+
+    nbrs = torch.tensor(_list_fit_guarded()[name][None], dtype=torch.float32,
+                        device=cuda)
+    q = torch.zeros(1, 3, device=cuda)
+    got = list_fit(nbrs, q)
+    want = list_fit_plain(nbrs, q)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.isfinite(want).all()
+
+
+@pytest.fixture(scope="module")
+def torus_1m_list():
+    """A warm fast_curvature(k=20) on the 1M torus with ``list_fit``
+    watched: every select's winners, queries and kernel output, the
+    kernel's launches in that call, the call's spec, its result, and the
+    kernels of a profiled call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    import pct_tpu_torch.pipeline.fused as fused
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.neighbors.grid import estimate_cell_size
+    from pct_tpu_torch.ops.list_fit import list_fit
+
+    cloud = from_numpy(_torus_cloud(1_000_000), device="cuda")
+    fused.fast_curvature(cloud, 20)
+    cell = estimate_cell_size(cloud.points, cloud.num_points, 20)
+    engine, spec, _, _ = fused.plan_engine(
+        build_grid(cloud.points, cloud.num_points, cell), 20)
+    assert engine == "list"
+    seen = []
+
+    def watched(nbrs, qpts):
+        out = list_fit(nbrs, qpts)
+        seen.append((nbrs.clone(), qpts.clone(), out.clone()))
+        return out
+
+    fused.list_fit = watched
+    try:
+        before = list_fit.launches
+        res = fused.fast_curvature(cloud, 20)
+        torch.cuda.synchronize()
+        launches = list_fit.launches - before
+    finally:
+        fused.list_fit = list_fit
+    kernels = _kernel_names(lambda: fused.fast_curvature(cloud, 20))
+    return seen, launches, spec, res, kernels
+
+
+def test_list_fit_kernel_bit_identical_on_torus_1m(torus_1m_list):
+    """Every select of a 1M-point fast_curvature(k=20) call: the
+    kernel's bits are the plain version's, one launch a select,
+    ``cellknn.list_select_launches`` of them."""
+    from pct_tpu_torch.neighbors import cellknn
+    from pct_tpu_torch.ops.list_fit import list_fit_plain
+
+    seen, launches, spec, res, _ = torus_1m_list
+    assert launches == len(seen) == cellknn.list_select_launches(spec)
+    assert sum(q.shape[0] * q.shape[1] for _, q, _ in seen) > 1_000_000
+    for nbrs, qpts, got in seen:
+        want = list_fit_plain(nbrs, qpts)
+        differing = (got.view(torch.int32) != want.view(torch.int32)).sum(
+            (0, 1))
+        assert differing.sum() == 0, differing.tolist()
+    assert torch.isfinite(res.curv.K).all()
+
+
+def test_list_fit_is_one_launch_a_select(torus_1m_list):
+    """The profiled k=20 call launches the list fit kernel once a coords
+    select and no epilogue or moments kernel."""
+    _, launches, _, _, kernels = torus_1m_list
+    assert sum("list_fit_kernel" in n for n in kernels) == launches
+    assert not any("epilogue_kernel" in n or "moments_kernel" in n
+                   for n in kernels)
+
+
+def test_implicit_list_route_launches_no_list_fit(cuda):
+    """The implicit method keeps the eager chain on the list engine."""
+    import pct_tpu_torch.pipeline.fused as fused
+    from pct_tpu_torch.core import from_numpy
+    from pct_tpu_torch.ops.list_fit import list_fit
+
+    cloud = from_numpy(_torus_cloud(100_000), device="cuda")
+    before = (list_fit.launches, knn_select_coords.launches)
+    res = fused.fast_curvature(cloud, 20, "implicit")
+    torch.cuda.synchronize()
+    assert knn_select_coords.launches > before[1]
+    assert list_fit.launches == before[0]
+    assert torch.isfinite(res.curv.K[:cloud.num_points]).all()

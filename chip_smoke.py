@@ -732,52 +732,57 @@ def list_fit_vs_plain(call, label, want, timed=False, max_rows=None):
     return rec, max_err
 
 
-def reset_counts(counters):
-    for fn in counters.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_k"):
-            fn.launches_by_k.clear()
+def read_counts(counters, since):
+    """The launches of each kernel in ``counters`` (name -> entry point
+    symbol) since the ``trace.counters()`` reading ``since``, and for
+    each name {k: launches at k} (the selects count their launches by k
+    too). The counters are never reset: the probe's share the
+    registry."""
+    from pct_tpu_torch.utils import trace
 
+    now = trace.counters()
 
-def read_counts(counters):
-    return ({name: fn.launches for name, fn in counters.items()},
-            {name: dict(fn.launches_by_k) for name, fn in counters.items()
-             if hasattr(fn, "launches_by_k")})
+    def got(key):
+        return now.get(key, 0) - since.get(key, 0)
+
+    by_k = {}
+    for name, symbol in counters.items():
+        pre = f"launches.{symbol}.k"
+        by_k[name] = {int(key[len(pre):]): got(key) for key in now
+                      if key.startswith(pre) and got(key)}
+    return ({name: got("launches." + symbol)
+             for name, symbol in counters.items()}, by_k)
 
 
 def drive(call, label, counters, want_launches, warm=3, want_by_k=None):
-    """A main path: counts set to 0, one cold and ``warm`` warm calls of
-    ``call()``, counts read. ``want_launches`` maps each counter's name
+    """A main path: one cold and ``warm`` warm calls of ``call()``, the
+    launches of each counted. ``want_launches`` maps each counter's name
     to the launches one call must add; ``want_by_k`` maps a select
-    counter's name to {k: launches one call must add at that k}. The
-    selects' per-k counts (``launches_by_k``) then hold this run's."""
+    counter's name to {k: launches one call must add at that k}. Returns
+    the last result, the walls and the launches of the whole run."""
     import torch
 
+    from pct_tpu_torch.utils import trace
+
     want_by_k = want_by_k or {}
-    reset_counts(counters)
+    since = trace.counters()
     walls = []
     for i in range(1 + warm):
-        before = {name: fn.launches for name, fn in counters.items()}
-        before_k = {name: dict(counters[name].launches_by_k)
-                    for name in want_by_k}
+        before = trace.counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = call()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        for name, fn in counters.items():
-            got = fn.launches - before[name]
+        launches, by_k = read_counts(counters, before)
+        for name, got in launches.items():
             check(got == want_launches[name],
                   f"{label} call {i}: {name} launched {got} times, want "
                   f"{want_launches[name]}")
         for name, want in want_by_k.items():
-            now = counters[name].launches_by_k
-            got = {kk: c - before_k[name].get(kk, 0) for kk, c in now.items()
-                   if c != before_k[name].get(kk, 0)}
-            check(got == want, f"{label} call {i}: {name} launches by k "
-                  f"{got}, want {want}")
-    launches = {name: fn.launches for name, fn in counters.items()}
-    return res, walls, launches
+            check(by_k[name] == want, f"{label} call {i}: {name} launches "
+                  f"by k {by_k[name]}, want {want}")
+    return res, walls, read_counts(counters, since)[0]
 
 
 def accuracy(res, cloud, pts, k, med_limit):
@@ -1306,6 +1311,7 @@ def normals_phase(label, cloud, pts, counters, none):
     from pct_tpu_torch.neighbors import cellknn
     from pct_tpu_torch.ops.select import knn_select_rows, select_rows_plain
     from pct_tpu_torch.pipeline.fused import SPLIT_TO
+    from pct_tpu_torch.utils import trace
 
     n, ncap = cloud.num_points, cloud.capacity
     rows = {"select_rows": (knn_select_rows, select_rows_plain)}
@@ -1336,12 +1342,13 @@ def normals_phase(label, cloud, pts, counters, none):
         spec_c, kc, rows, f"rows kc={kc} (coarse graph)")
     del plan
 
+    since = trace.counters()
     nrm, walls, launches = drive(
         lambda: estimate_and_orient_normals(cloud, k=K_NORMALS),
         f"estimate_and_orient_normals k={k}", counters,
         {**none, "moments": len(spec_m), "select_rows": len(spec_v) + 1,
          "epilogue": 1}, want_by_k={"select_rows": {kv: len(spec_v), kc: 1}})
-    by_k = dict(counters["select_rows"].launches_by_k)
+    by_k = read_counts(counters, since)[1]["select_rows"]
     got = nrm[:n].cpu().numpy()
     agree = tube_normal_agreement(got, pts)
     norm_err = float(np.abs(np.linalg.norm(got, axis=1) - 1).max())
@@ -1557,6 +1564,7 @@ def mesh_path_phase(label, pts, counters, none):
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.pipeline import create_mesh_with_curvature, plan_engine
     from pct_tpu_torch.shapes import analytic_area, analytic_energies
+    from pct_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -1580,13 +1588,13 @@ def mesh_path_phase(label, pts, counters, none):
     check(plan.hierarchical and plan.moments is not None,
           "the mesh path's normals take the hierarchical moments route")
     del plan
-    reset_counts(counters)
+    since = trace.counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = create_mesh_with_curvature(pts, k_neighbors=K_LIST, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, by_k = read_counts(counters)
+    launches, by_k = read_counts(counters, since)
 
     V, F = len(res.vertices), len(res.faces)
     nb = len(boundary_edges(res.faces))
@@ -1708,6 +1716,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     from pct_tpu_torch.shapes import analytic_area, analytic_energies
     from pct_tpu_torch.validate import run_scans, run_sweep, validate_cloud
     from pct_tpu_torch.validate.sweep import CSV_FIELDS, STAGE_KEYS
+    from pct_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -1730,7 +1739,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     mp.create_mesh_with_curvature = spy
     with tempfile.TemporaryDirectory() as tmp:
         out_csv = str(Path(tmp) / "sweep.csv")
-        reset_counts(counters)
+        since = trace.counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rows = run_sweep([N_POINTS], [1.0], ["torus"], out_csv=out_csv,
@@ -1738,7 +1747,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
                          k_neighbors=K_LIST)
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t0
-        launches, by_k = read_counts(counters)
+        launches, by_k = read_counts(counters, since)
         mp.create_mesh_with_curvature = inner
         with open(out_csv, newline="") as f:
             header, *body = list(csv.reader(f))
@@ -1806,14 +1815,14 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     spec20 = vertex_buckets(pts, K_LIST)
     check(len(spec20) == n20, f"the unpadded cloud's k={K_LIST} plan has "
           f"phase 3b's {n20} buckets ({len(spec20)})")
-    reset_counts(counters)
+    since = trace.counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = validate_cloud(pts, shape="torus", radius=1.0, k_neighbors=K_LIST,
                          auto_k=True, use_mesh=False)
     torch.cuda.synchronize()
     wall_b = time.perf_counter() - t0
-    launches, _ = read_counts(counters)
+    launches, _ = read_counts(counters, since)
     n_sel = cellknn.list_select_launches(spec20)
     want = {**none, "select_coords": n_sel, "list_fit": n_sel}
     log(f"[{label}] validate_cloud(auto_k=True, use_mesh=False, k="
@@ -1856,7 +1865,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
         scan_dir = Path(tmp) / "scans"
         scan_dir.mkdir()
         write_ply(str(scan_dir / "torus_1M.ply"), pts, binary=True)
-        reset_counts(counters)
+        since = trace.counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         scan_rows = run_scans(str(scan_dir),
@@ -1864,7 +1873,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
                               use_mesh=False, repeat=2)
         torch.cuda.synchronize()
         wall_c = time.perf_counter() - t0
-        launches, _ = read_counts(counters)
+        launches, _ = read_counts(counters, since)
     want = {**none, "moments": 2 * n100, "epilogue": 2}
     for sr in scan_rows:
         log(f"[{label}] run_scans row {sr['run']}: {sr['status']}, "
@@ -3119,17 +3128,12 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from pct_tpu_torch.core import from_numpy
-    from pct_tpu_torch.experimental import knn_band_select
     from pct_tpu_torch.neighbors import cellknn
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
     from pct_tpu_torch.ops import build
     from pct_tpu_torch.neighbors import knn_cloud_grid
-    from pct_tpu_torch.ops.epilogue import moments_epilogue
-    from pct_tpu_torch.ops.list_fit import list_fit
-    from pct_tpu_torch.ops.moments import knn_moments
     from pct_tpu_torch.ops.select import (
         knn_select,
-        knn_select_coords,
         knn_select_rows,
         select_pos_plain,
         select_rows_plain,
@@ -3140,11 +3144,6 @@ def main():
         fused_curvature,
     )
     from pct_tpu_torch.pipeline.fused import SPLIT_TO, plan_engine
-    from pct_tpu_torch.micro import (
-        moments_like,
-        moments_variant,
-        select_coords_mxu,
-    )
     from pct_tpu_torch.shapes import generate_shape
 
     # --- 2. build every kernel from the checkout ---
@@ -3170,13 +3169,16 @@ def main():
     pts, _ = generate_shape("torus", N_POINTS, radius=1.0)
     cloud = from_numpy(pts, pad_multiple=PAD_MULTIPLE, device=dev)
     n = cloud.num_points
-    counters = {"select_coords": knn_select_coords, "moments": knn_moments,
-                "select_rows": knn_select_rows, "select_pos": knn_select,
-                "band_select": knn_band_select,
-                "moments_split": moments_variant,
-                "select_coords_mxu": select_coords_mxu,
-                "moments_like": moments_like, "epilogue": moments_epilogue,
-                "list_fit": list_fit}
+    # each kernel's entry point, whose launches ``ops.build.kernel`` counts
+    counters = {"select_coords": "pct_select_coords",
+                "moments": "pct_knn_moments",
+                "select_rows": "pct_select_rows",
+                "select_pos": "pct_select_pos",
+                "band_select": "pct_band_select",
+                "moments_split": "pct_moments_variant",
+                "select_coords_mxu": "pct_select_coords_mxu",
+                "moments_like": "pct_moments_like",
+                "epilogue": "pct_moments_epilogue", "list_fit": "pct_list_fit"}
     none = {name: 0 for name in counters}
 
     # --- 3. list engine, k=20 ---

@@ -34,7 +34,7 @@ passes its cells' counts and drops exactly those slots, so its results
 are the same in both modes.
 
 On CUDA tensors the hand-written kernel ``csrc/band_select.cu`` runs
-(built with nvcc at first use; ``knn_band_select.launches`` counts its
+(built with nvcc at first use; ``launches.pct_band_select`` counts its
 launches) over a fixed-size tile of the block's run hulls: up to k =
 1024 one warp per computed query slot on ``csrc/knn_warp.cuh``, its
 scratch the class of k that ``ops.select``'s kernels use; past 1024 the
@@ -49,9 +49,6 @@ DMA window, kept so both packages accept and refuse the same ``band``.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
@@ -158,14 +155,6 @@ def _check(px, py, pz, bs, rs_rel, run_len, qpts, qrow_base, lo_edge,
         raise ValueError(f"operands on several devices: {devs}")
 
 
-@functools.cache
-def _kernel():
-    fn = build.load("band_select").pct_band_select
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def knn_band_select(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
                     bs: torch.Tensor, rs_rel: torch.Tensor,
                     run_len: torch.Tensor, qpts: torch.Tensor,
@@ -192,32 +181,13 @@ def knn_band_select(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
     dev = px.device
     if dev.type == "cpu":
         return band_select_plain(*ops, k, bc, cap, band, counts)
-    if dev.type != "cuda":
-        raise ValueError(f"no band select for device {dev}")
-    names = ("px", "py", "pz", "bs", "rs_rel", "run_len", "qpts",
-             "qrow_base", "lo_edge", "hi_edge", "counts")
-    for name, a in zip(names, ops + (counts,)):
-        if a is not None and not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     nb = bs.shape[0]
     s = nb * bc * cap
     dists = torch.empty((s, k), dtype=torch.float32, device=dev)
     rows = torch.empty((s, k), dtype=torch.int32, device=dev)
     cover = torch.empty((s,), dtype=torch.float32, device=dev)
-    if nb == 0:
-        return dists, rows, cover
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(a.data_ptr() for a in ops),
-                 None if counts is None else counts.data_ptr(),
-                 dists.data_ptr(), rows.data_ptr(), cover.data_ptr(), nb,
-                 px.shape[0], k, bc, cap, band, stream)
-    if err != 0:
-        raise RuntimeError(f"pct_band_select kernel launch failed: CUDA "
-                           f"error {err}")
-    knn_band_select.launches += 1
+    if nb > 0:
+        build.kernel("band_select", "pct_band_select")(
+            *ops, counts, dists, rows, cover, nb, px.shape[0], k, bc, cap,
+            band)
     return dists, rows, cover
-
-
-knn_band_select.launches = 0

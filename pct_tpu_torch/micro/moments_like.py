@@ -27,7 +27,6 @@ product and sum rounded on its own (no FMA, no TF32), and both sum the
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -79,15 +78,12 @@ def _check(x, y):
         raise ValueError(f"{x.shape[0]} tiles above {MAX_TILES}")
 
 
-@functools.cache
-def _library():
-    lib = build.load("moments_like")
-    lib.pct_moments_like.argtypes = ([ctypes.c_void_p] * 5
-                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.pct_moments_like.restype = ctypes.c_int
-    lib.pct_moments_like_slabs.argtypes = [ctypes.c_int]
-    lib.pct_moments_like_slabs.restype = ctypes.c_int
-    return lib
+def _slabs(C: int) -> int:
+    """Row slabs a tile of C query rows takes (one arrival ticket each)."""
+    fn = build.load("moments_like").pct_moments_like_slabs
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(C)
 
 
 _tickets: dict = {}
@@ -107,39 +103,23 @@ def _ticket(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 
 def moments_like(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(T,C,256), (T,M,256) -> (T,C,128) per-chunk row stats (module
-    docstring). CUDA tensors launch the kernel (``moments_like.launches``
-    counts launches: one a call, the last-arriving units' finishing pass
-    included, as it runs inside that launch); CPU tensors run
-    ``moments_like_plain``."""
+    docstring). CUDA tensors launch the kernel once a call, the
+    last-arriving units' finishing pass inside that launch; CPU tensors
+    run ``moments_like_plain``."""
     _check(x, y)
     T, C, _ = x.shape
     dev = x.device
     if dev.type == "cpu":
         return moments_like_plain(x, y)
-    if dev.type != "cuda":
-        raise ValueError(f"no moments_like kernel for device {dev}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("x and y must be contiguous")
     out = torch.empty((T, C, NOUT), dtype=torch.float32, device=dev)
     if T == 0 or C == 0:
         return out
     # the kernel copies 16-byte pieces; a view may start off that grain
     x, y = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (x, y))
-    lib = _library()
     M = y.shape[1]
     part = torch.empty(T * C * (M // CHUNK) * 2 * 4, dtype=torch.float32,
                        device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ticket = _ticket(dev, stream, T * lib.pct_moments_like_slabs(C))
-        err = lib.pct_moments_like(x.data_ptr(), y.data_ptr(),
-                                   out.data_ptr(), part.data_ptr(),
-                                   ticket.data_ptr(), T, C, M, stream)
-    if err != 0:
-        raise RuntimeError(f"moments_like kernel launch failed: CUDA error "
-                           f"{err}")
-    moments_like.launches += 1
+    ticket = _ticket(dev, build.stream(dev), T * _slabs(C))
+    build.kernel("moments_like", "pct_moments_like")(x, y, out, part, ticket,
+                                                     T, C, M)
     return out
-
-
-moments_like.launches = 0

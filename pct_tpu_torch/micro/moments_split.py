@@ -46,7 +46,6 @@ holds.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -183,19 +182,6 @@ def moments_variant_plain(qpts: torch.Tensor, cpts: torch.Tensor,
                       qrow, valid)
 
 
-@functools.cache
-def _library():
-    lib = build.load("moments_split")
-    lib.pct_moments_variant.argtypes = ([ctypes.c_void_p] * 6
-                                        + [ctypes.c_int] * 6
-                                        + [ctypes.c_void_p])
-    lib.pct_moments_variant.restype = ctypes.c_int
-    lib.pct_moments_variant_info.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.POINTER(ctypes.c_int)]
-    lib.pct_moments_variant_info.restype = ctypes.c_int
-    return lib
-
-
 def variant_info(C: int, M: int, mode: str = "full") -> dict:
     """The kernel a (C, M) shape runs under ``mode`` on the current card,
     without launching: ``path`` (6, 8 or 10: that many bits a lane in
@@ -204,8 +190,11 @@ def variant_info(C: int, M: int, mode: str = "full") -> dict:
     a block and ``smem`` (dynamic shared bytes a block)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not one of {MODES}")
+    fn = build.load("moments_split").pct_moments_variant_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
     info = (ctypes.c_int * 4)()
-    err = _library().pct_moments_variant_info(C, M, MODES.index(mode), info)
+    err = fn(C, M, MODES.index(mode), info)
     if err != 0:
         raise RuntimeError(f"moments variant occupancy query failed: CUDA "
                            f"error {err}")
@@ -218,9 +207,9 @@ def moments_variant(qpts: torch.Tensor, cpts: torch.Tensor,
                     valid: torch.Tensor, k: int, tb: int = 1,
                     mode: str = "full") -> torch.Tensor:
     """``knn_moments``' stats with the stages of ``mode`` (module
-    docstring), ``tb`` cell rows a thread block. CUDA tensors launch the
-    kernel (``moments_variant.launches`` counts launches); CPU tensors
-    run ``moments_variant_plain``."""
+    docstring), ``tb`` cell rows a thread block. CUDA tensors launch
+    ``csrc/moments_split.cu:pct_moments_variant``; CPU tensors run
+    ``moments_variant_plain``."""
     _check(qpts, cpts, cand, qrow, valid, k)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not one of {MODES}")
@@ -231,26 +220,9 @@ def moments_variant(qpts: torch.Tensor, cpts: torch.Tensor,
     dev = qpts.device
     if dev.type == "cpu":
         return moments_variant_plain(qpts, cpts, cand, qrow, valid, k, mode)
-    if dev.type != "cuda":
-        raise ValueError(f"no moments variant kernel for device {dev}")
-    for name, a in (("qpts", qpts), ("cpts", cpts), ("cand", cand),
-                    ("qrow", qrow), ("valid", valid)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     out = torch.empty((T, C, NOUT), dtype=torch.float32, device=dev)
-    if T == 0:
-        return out
-    fn = _library().pct_moments_variant
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qpts.data_ptr(), cpts.data_ptr(), cand.data_ptr(),
-                 qrow.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                 T, C, M, k, tb, MODES.index(mode), stream)
-    if err != 0:
-        raise RuntimeError(f"moments variant kernel ({mode}) launch failed: "
-                           f"CUDA error {err}")
-    moments_variant.launches += 1
+    if T > 0:
+        build.kernel("moments_split", "pct_moments_variant")(
+            qpts, cpts, cand, qrow, valid, out, T, C, M, k, tb,
+            MODES.index(mode))
     return out
-
-
-moments_variant.launches = 0

@@ -37,9 +37,6 @@ as the product's sum from +0 does). The two agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from pct_tpu_torch.ops import build
@@ -87,22 +84,13 @@ def select_coords_mxu_plain(qpts: torch.Tensor, cpts: torch.Tensor,
     return dists, nbrs, rows
 
 
-@functools.cache
-def _library():
-    fn = build.load("select_mxu").pct_select_coords_mxu
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def select_coords_mxu(qpts: torch.Tensor, cpts: torch.Tensor,
                       cand: torch.Tensor, qrow: torch.Tensor,
                       valid: torch.Tensor, k: int, block_cells: int = 8):
     """(T,C,3) queries vs (T,M,3) candidates -> (dists (T,C,k), nbrs
     (T,C,k,3), rows (T,C,k) int32) as the module docstring says;
-    1 ≤ k ≤ 128. CUDA tensors launch the kernel
-    (``select_coords_mxu.launches`` counts launches: one a call, the
-    selection and the per-row product both inside it); CPU tensors run
+    1 ≤ k ≤ 128. CUDA tensors launch the kernel once a call, the
+    selection and the per-row product both inside it; CPU tensors run
     ``select_coords_mxu_plain``."""
     _check(qpts, cpts, cand, qrow, valid, k)
     T, C, _ = qpts.shape
@@ -114,29 +102,11 @@ def select_coords_mxu(qpts: torch.Tensor, cpts: torch.Tensor,
     dev = qpts.device
     if dev.type == "cpu":
         return select_coords_mxu_plain(qpts, cpts, cand, qrow, valid, k)
-    if dev.type != "cuda":
-        raise ValueError(f"no select_coords_mxu kernel for device {dev}")
-    for name, a in (("qpts", qpts), ("cpts", cpts), ("cand", cand),
-                    ("qrow", qrow), ("valid", valid)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     dists = torch.empty((T, C, k), dtype=torch.float32, device=dev)
     nbrs = torch.empty((T, C, k, 3), dtype=torch.float32, device=dev)
     rows = torch.empty((T, C, k), dtype=torch.int32, device=dev)
-    if T == 0:
-        return dists, nbrs, rows
-    fn = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qpts.data_ptr(), cpts.data_ptr(), cand.data_ptr(),
-                 qrow.data_ptr(), valid.data_ptr(), dists.data_ptr(),
-                 nbrs.data_ptr(), rows.data_ptr(), T, C, M, k, block_cells,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"select_coords_mxu kernel launch failed: CUDA "
-                           f"error {err}")
-    select_coords_mxu.launches += 1
+    if T > 0:
+        build.kernel("select_mxu", "pct_select_coords_mxu")(
+            qpts, cpts, cand, qrow, valid, dists, nbrs, rows, T, C, M, k,
+            block_cells)
     return dists, nbrs, rows
-
-
-select_coords_mxu.launches = 0

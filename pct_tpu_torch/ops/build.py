@@ -7,6 +7,15 @@ A library's file name carries a hash of its source, of every shared
 header (``csrc/*.cuh``) and of the flags, so an edited source or header
 is rebuilt and never loaded stale. A missing ``nvcc`` or a failed build
 raises.
+
+Every kernel launch goes through ``kernel(source, symbol)``: the
+libraries share one C ABI (device pointers, then ints, then the
+``cudaStream_t``; the entry point returns ``cudaGetLastError()``), so
+one launcher converts the operands, checks them, launches on the
+operands' device and current stream, raises on a CUDA error and counts
+the launch as ``launches.<symbol>`` in ``utils.trace.counters()``.
+Host queries that launch nothing (a layout, an occupancy) call
+``load(name)`` with their own types.
 """
 
 from __future__ import annotations
@@ -14,11 +23,16 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
+
+from pct_tpu_torch.utils import trace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -98,3 +112,59 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (built on first call)."""
     return ctypes.CDLL(str(build_all([name])[name]))
+
+
+def stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+@functools.cache
+def _entry(source: str, symbol: str):
+    fn = getattr(load(source), symbol)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def kernel(source: str, symbol: str):
+    """The launcher of entry point ``symbol`` of ``csrc/<source>.cu``.
+
+    ``launch(*operands)`` passes each tensor as its data pointer, None as
+    a null pointer and each int as a 32-bit int, then the current stream
+    of the tensors' device. Before any library is loaded it raises
+    ``ValueError`` for an int outside [-2^31, 2^31), a tensor that is
+    not contiguous, tensors on several devices or none, and a device
+    that is not CUDA. A nonzero CUDA error raises ``RuntimeError``; each
+    launch adds 1 to counter ``launches.<symbol>``.
+    """
+    counter = "launches." + symbol
+
+    def launch(*operands):
+        devs = set()
+        for i, a in enumerate(operands):
+            if isinstance(a, torch.Tensor):
+                devs.add(a.device)
+                if not a.is_contiguous():
+                    raise ValueError(f"{symbol} operand {i} must be "
+                                     "contiguous")
+            elif a is not None and not -2**31 <= operator.index(a) < 2**31:
+                raise ValueError(f"{symbol} operand {i} = {a} is not a "
+                                 "32-bit int")
+        if len(devs) != 1:
+            raise ValueError(f"{symbol} operands on {len(devs)} devices: "
+                             f"{sorted(map(str, devs))}")
+        (dev,) = devs
+        if dev.type != "cuda":
+            raise ValueError(f"no {source} kernel for device {dev}")
+        args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+                else ctypes.c_void_p() if a is None
+                else ctypes.c_int(operator.index(a)) for a in operands]
+        fn = _entry(source, symbol)
+        with torch.cuda.device(dev):
+            err = fn(*args, ctypes.c_void_p(stream(dev)))
+        if err != 0:
+            raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+        trace.count(counter, 1)
+
+    return launch

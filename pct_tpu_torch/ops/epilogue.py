@@ -32,8 +32,6 @@ differently from the kernel's ``__fdiv_rn``.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
@@ -294,41 +292,18 @@ def _check(stats: torch.Tensor):
                          f"{tuple(stats.shape)}")
     if not stats.is_contiguous():
         raise ValueError("stats must be contiguous")
-    if stats.shape[0] >= 2**31:
-        raise ValueError(f"{stats.shape[0]} rows past 2^31 - 1")
-
-
-@functools.cache
-def _library():
-    fn = build.load("epilogue").pct_moments_epilogue
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def moments_epilogue(stats: torch.Tensor) -> torch.Tensor:
     """(rows, 48) moment stats -> (rows, 8) float32 K, H, k1, k2, H², nx,
-    ny, nz. CUDA tensors launch the kernel once (``moments_epilogue.
-    launches`` counts launches); CPU tensors run ``epilogue_plain``."""
+    ny, nz. CUDA tensors launch ``csrc/epilogue.cu:pct_moments_epilogue``
+    once; CPU tensors run ``epilogue_plain``."""
     _check(stats)
     dev = stats.device
     if dev.type == "cpu":
         return epilogue_plain(stats)
-    if dev.type != "cuda":
-        raise ValueError(f"no epilogue kernel for device {dev}")
     rows = stats.shape[0]
     out = torch.empty((rows, NOUT), dtype=torch.float32, device=dev)
-    if rows == 0:
-        return out
-    fn = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(stats.data_ptr(), out.data_ptr(), rows, stream)
-    if err != 0:
-        raise RuntimeError(f"epilogue kernel launch failed: CUDA error {err}")
-    moments_epilogue.launches += 1
+    if rows > 0:
+        build.kernel("epilogue", "pct_moments_epilogue")(stats, out, rows)
     return out
-
-
-moments_epilogue.launches = 0

@@ -34,7 +34,6 @@ rounding only. Divisions are true divisions by a tensor (see
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -118,54 +117,30 @@ def _check(nbrs: torch.Tensor, qpts: torch.Tensor):
                          f"{tuple(qpts.shape)}")
     if nbrs.device != qpts.device:
         raise ValueError(f"nbrs on {nbrs.device}, qpts on {qpts.device}")
-    if qpts.numel() // 3 >= 2**31:
-        raise ValueError(f"{qpts.numel() // 3} rows past 2^31 - 1")
-
-
-@functools.cache
-def _library():
-    lib = build.load("list_fit")
-    lib.pct_list_fit.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p]
-    lib.pct_list_fit.restype = ctypes.c_int
-    lib.pct_list_fit_layout.argtypes = [ctypes.c_int]
-    lib.pct_list_fit_layout.restype = ctypes.c_int
-    return lib
 
 
 def list_fit_layout(k: int) -> int:
     """The kernel's variant at k (card only: builds ``csrc/list_fit.cu``):
     rows a block, positive where the block stages its rows' winners in
     shared memory, negative where each row streams from device memory."""
-    return int(_library().pct_list_fit_layout(k))
+    fn = build.load("list_fit").pct_list_fit_layout
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return int(fn(k))
 
 
 def list_fit(nbrs: torch.Tensor, qpts: torch.Tensor) -> torch.Tensor:
     """(..., k, 3) winners and (..., 3) queries -> (..., 8) float32 K, H,
-    k1, k2, H², nx, ny, nz. CUDA tensors launch the kernel once
-    (``list_fit.launches`` counts launches); CPU tensors run
+    k1, k2, H², nx, ny, nz. CUDA tensors launch
+    ``csrc/list_fit.cu:pct_list_fit`` once; CPU tensors run
     ``list_fit_plain``."""
     _check(nbrs, qpts)
     dev = nbrs.device
     if dev.type == "cpu":
         return list_fit_plain(nbrs, qpts)
-    if dev.type != "cuda":
-        raise ValueError(f"no list fit kernel for device {dev}")
     rows, k = qpts.numel() // 3, nbrs.shape[-2]
     out = torch.empty(qpts.shape[:-1] + (NOUT,), dtype=torch.float32,
                       device=dev)
-    if rows == 0:
-        return out
-    fn = _library().pct_list_fit
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(nbrs.data_ptr(), qpts.data_ptr(), out.data_ptr(), rows, k,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"list fit kernel launch failed: CUDA error {err}")
-    list_fit.launches += 1
+    if rows > 0:
+        build.kernel("list_fit", "pct_list_fit")(nbrs, qpts, out, rows, k)
     return out
-
-
-list_fit.launches = 0

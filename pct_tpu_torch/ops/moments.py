@@ -37,13 +37,10 @@ which keeps each moment column within count_le² · 2⁻²⁴ of the other
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from pct_tpu_torch.fit.layout import MOMENT_EXPS
-from pct_tpu_torch.ops import build
+from pct_tpu_torch.ops import build, select
 
 NOUT = 48
 MISSING_D2 = 3.0e38       # d² of a skipped slot
@@ -185,38 +182,14 @@ def stats_agreement(got: torch.Tensor, want: torch.Tensor):
 
 
 def _check(qpts, cpts, cand, qrow, valid, k):
-    if qpts.dim() != 3 or qpts.shape[2] != 3 or cpts.dim() != 3 \
-            or cpts.shape[2] != 3 or cpts.shape[0] != qpts.shape[0]:
-        raise ValueError(f"qpts (T,C,3) / cpts (T,M,3) expected, got "
-                         f"{tuple(qpts.shape)} / {tuple(cpts.shape)}")
-    T, C, _ = qpts.shape
-    M = cpts.shape[1]
-    if not 1 <= M < 2**31:
+    """``ops.select``'s operand contract, and the kernel's two bounds:
+    M < 2^31 candidate slots and at most ``MAX_QUERIES`` query slots."""
+    select._check(qpts, cpts, cand, qrow, valid, k)
+    M, C = cpts.shape[1], qpts.shape[1]
+    if M >= 2**31:
         raise ValueError(f"{M} candidate slots outside [1, 2^31)")
-    for name, a, shape in (("cand", cand, (T, M)), ("qrow", qrow, (T, C)),
-                           ("valid", valid, (T, M))):
-        if tuple(a.shape) != shape or a.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32 {shape}, got "
-                             f"{a.dtype} {tuple(a.shape)}")
-    if qpts.dtype != torch.float32 or cpts.dtype != torch.float32:
-        raise ValueError("qpts and cpts must be float32")
-    devs = {a.device for a in (qpts, cpts, cand, qrow, valid)}
-    if len(devs) != 1:
-        raise ValueError(f"operands on several devices: {devs}")
-    if k < 1:
-        raise ValueError(f"k={k} must be positive")
-    if not 1 <= C <= MAX_QUERIES:
+    if C > MAX_QUERIES:
         raise ValueError(f"{C} query slots outside [1, {MAX_QUERIES}]")
-
-
-@functools.cache
-def _library():
-    lib = build.load("moments")
-    fn = lib.pct_knn_moments
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def knn_moments(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
@@ -228,8 +201,8 @@ def knn_moments(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
     ``cand`` (T,M) int32 candidate rows, ``qrow`` (T,C) int32 query rows
     (a candidate equal to the query's row is itself and is skipped),
     ``valid`` (T,M) int32, > 0 where the slot is real. CUDA tensors
-    launch the kernel (``knn_moments.launches`` counts launches); CPU
-    tensors run ``moments_plain``.
+    launch ``csrc/moments.cu:pct_knn_moments``; CPU tensors run
+    ``moments_plain``.
     """
     _check(qpts, cpts, cand, qrow, valid, k)
     T, C, _ = qpts.shape
@@ -237,25 +210,8 @@ def knn_moments(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
     dev = qpts.device
     if dev.type == "cpu":
         return moments_plain(qpts, cpts, cand, qrow, valid, k)
-    if dev.type != "cuda":
-        raise ValueError(f"no moments kernel for device {dev}")
-    for name, a in (("qpts", qpts), ("cpts", cpts), ("cand", cand),
-                    ("qrow", qrow), ("valid", valid)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     out = torch.empty((T, C, NOUT), dtype=torch.float32, device=dev)
-    if T == 0:
-        return out
-    fn = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qpts.data_ptr(), cpts.data_ptr(), cand.data_ptr(),
-                 qrow.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                 T, C, M, k, stream)
-    if err != 0:
-        raise RuntimeError(f"moments kernel launch failed: CUDA error {err}")
-    knn_moments.launches += 1
+    if T > 0:
+        build.kernel("moments", "pct_knn_moments")(
+            qpts, cpts, cand, qrow, valid, out, T, C, M, k)
     return out
-
-
-knn_moments.launches = 0

@@ -39,11 +39,11 @@ so the two agree bit for bit on the card.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from pct_tpu_torch.ops import build
+from pct_tpu_torch.utils import trace
 
 MISSING_D2 = 3.0e38
 WARP_KMAX = 1024    # the warp classes' largest k; past it the block class
@@ -172,14 +172,6 @@ def _check(qpts, cpts, cand, qrow, valid, k):
         raise ValueError("qpts needs at least one query slot")
 
 
-@functools.cache
-def _kernel(source: str, symbol: str):
-    fn = getattr(build.load(source), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _workspace(T: int, C: int, M: int, k: int, dev):
     """The block class's device-memory sort workspace, where a query's
     min(k, M) winners exceed SORT_KEYS: one slice of min(k, M) int64 keys
@@ -191,39 +183,24 @@ def _workspace(T: int, C: int, M: int, k: int, dev):
                        device=dev)
 
 
-def _select(wrapper, source: str, symbol: str, plain, win_dtype, win_tail,
+def _select(source: str, symbol: str, plain, win_dtype, win_tail,
             qpts, cpts, cand, qrow, valid, k: int):
     """Check the operands, then run ``plain`` on CPU tensors or launch
-    ``symbol`` of ``csrc/<source>.cu`` on CUDA tensors, counting the
-    launch on ``wrapper.launches`` and on ``wrapper.launches_by_k[k]``."""
+    ``symbol`` of ``csrc/<source>.cu``, counting the launch also as
+    ``launches.<symbol>.k<k>``."""
     _check(qpts, cpts, cand, qrow, valid, k)
     T, C, _ = qpts.shape
     M = cpts.shape[1]
     dev = qpts.device
     if dev.type == "cpu":
         return plain(qpts, cpts, cand, qrow, valid, k)
-    if dev.type != "cuda":
-        raise ValueError(f"no select for device {dev}")
-    for name, a in (("qpts", qpts), ("cpts", cpts), ("cand", cand),
-                    ("qrow", qrow), ("valid", valid)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     dists = torch.empty((T, C, k), dtype=torch.float32, device=dev)
     wins = torch.empty((T, C, k) + win_tail, dtype=win_dtype, device=dev)
-    if T == 0:
-        return dists, wins
-    ws = _workspace(T, C, M, k, dev)
-    fn = _kernel(source, symbol)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qpts.data_ptr(), cpts.data_ptr(), cand.data_ptr(),
-                 qrow.data_ptr(), valid.data_ptr(), dists.data_ptr(),
-                 wins.data_ptr(), None if ws is None else ws.data_ptr(),
-                 T, C, M, k, stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
-    wrapper.launches_by_k[k] = wrapper.launches_by_k.get(k, 0) + 1
+    if T > 0:
+        build.kernel(source, symbol)(qpts, cpts, cand, qrow, valid, dists,
+                                     wins, _workspace(T, C, M, k, dev),
+                                     T, C, M, k)
+        trace.count(f"launches.{symbol}.k{k}", 1)
     return dists, wins
 
 
@@ -236,10 +213,10 @@ def knn_select_coords(qpts: torch.Tensor, cpts: torch.Tensor,
     ``cand`` (T,M) int32 candidate ids, ``qrow`` (T,C) int32 query ids
     (a candidate equal to the query's id is itself and is skipped),
     ``valid`` (T,M) int32 nonzero where the slot is real; any k >= 1.
-    CUDA tensors launch the kernel (``knn_select_coords.launches`` counts
-    launches); CPU tensors run ``select_coords_plain``.
+    CUDA tensors launch ``csrc/select_coords.cu:pct_select_coords``; CPU
+    tensors run ``select_coords_plain``.
     """
-    return _select(knn_select_coords, "select_coords", "pct_select_coords",
+    return _select("select_coords", "pct_select_coords",
                    select_coords_plain, torch.float32, (3,),
                    qpts, cpts, cand, qrow, valid, k)
 
@@ -249,10 +226,10 @@ def knn_select_rows(qpts: torch.Tensor, cpts: torch.Tensor,
                     valid: torch.Tensor, k: int):
     """Same selection as ``knn_select_coords`` -> (dists (T,C,k), rows
     (T,C,k) int32 = cand[pos], the winners' ids). CUDA tensors launch
-    ``csrc/select_rows.cu:pct_select_rows`` (``knn_select_rows.launches``);
-    CPU tensors run ``select_rows_plain``.
+    ``csrc/select_rows.cu:pct_select_rows``; CPU tensors run
+    ``select_rows_plain``.
     """
-    return _select(knn_select_rows, "select_rows", "pct_select_rows",
+    return _select("select_rows", "pct_select_rows",
                    select_rows_plain, torch.int32, (),
                    qpts, cpts, cand, qrow, valid, k)
 
@@ -261,10 +238,10 @@ def knn_select(qpts: torch.Tensor, cpts: torch.Tensor, cand: torch.Tensor,
                qrow: torch.Tensor, valid: torch.Tensor, k: int):
     """Same selection as ``knn_select_coords`` -> (dists (T,C,k), pos
     (T,C,k) int32 winner positions in the M axis). CUDA tensors launch
-    ``csrc/select_rows.cu:pct_select_pos`` (``knn_select.launches``); CPU
-    tensors run ``select_pos_plain``.
+    ``csrc/select_rows.cu:pct_select_pos``; CPU tensors run
+    ``select_pos_plain``.
     """
-    return _select(knn_select, "select_rows", "pct_select_pos",
+    return _select("select_rows", "pct_select_pos",
                    select_pos_plain, torch.int32, (),
                    qpts, cpts, cand, qrow, valid, k)
 
@@ -283,9 +260,3 @@ def select_layout(C: int, M: int, k: int) -> int:
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
     return int(fn(C, M, k))
-
-
-for _wrapper in (knn_select_coords, knn_select_rows, knn_select):
-    _wrapper.launches = 0
-    _wrapper.launches_by_k = {}
-del _wrapper

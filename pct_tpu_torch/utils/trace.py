@@ -12,7 +12,13 @@ call of the function it decorates inside ``span(name)``.
 ``count(name, n)`` adds a host integer to a process-wide tally, read by
 ``counters()`` and cleared by ``reset()``. Every count is taken where
 the host already holds the value, so neither a span nor a count copies
-from the device or synchronises.
+from the device or synchronises. Beside the probe's and the repair's
+counts the tally holds every hand-written kernel's launches:
+``launches.<symbol>`` (``ops.build.kernel`` counts each launch of entry
+point ``symbol``), and for the three selects also
+``launches.<symbol>.k<k>``. A reader that wants the launches of one
+call takes the difference of ``counters()`` before and after it;
+``reset()`` would clear the probe's counts too.
 """
 
 from __future__ import annotations

@@ -115,11 +115,14 @@ def _run(rank, world, device, points):
     )
     from pct_tpu_torch.distributed.slab import best_axis_order
     from pct_tpu_torch.neighbors.grid import build_grid, estimate_cell_size
-    from pct_tpu_torch.ops.moments import knn_moments
-    from pct_tpu_torch.ops.select import knn_select_coords
     from pct_tpu_torch.pipeline import fused_curvature
     from pct_tpu_torch.pipeline.fused import SPLIT_TO, plan_engine
     from pct_tpu_torch.shapes import generate_shape
+    from pct_tpu_torch.utils import trace
+
+    def launched(symbol):
+        """This process's launches of kernel ``symbol`` so far."""
+        return trace.counters().get("launches." + symbol, 0)
 
     mesh = make_mesh(world, device=device)
     dev = torch.device("cuda", rank) if device == "cuda" else torch.device(
@@ -137,13 +140,14 @@ def _run(rank, world, device, points):
             build_grid(cloud.points, n, cell), k)
         kw = dict(bucket_spec=spec, max_cells=mc, engine=engine,
                   split=(SPLIT_TO, factor))
-        counter = knn_select_coords if engine == "list" else knn_moments
-        before = counter.launches
+        counter = ("pct_select_coords" if engine == "list"
+                   else "pct_knn_moments")
+        before = launched(counter)
         res, w = walls(lambda: sharded_curvature(mesh, cloud.points, n, cell,
                                                  k, **kw), sync)
         per_rank = [None] * world
         dist.all_gather_object(per_rank,
-                               (counter.launches - before) // (1 + REPS))
+                               (launched(counter) - before) // (1 + REPS))
         single, w1 = walls(lambda: fused_curvature(cloud.points, n, cell, k,
                                                    device=dev, **kw), sync)
         outs = [*zip(("K", "H", "k1", "k2", "H2"), res.curv, single.curv),
@@ -196,12 +200,13 @@ def _run(rank, world, device, points):
 
     slabs = {}
     for tag, kw in (("slab", {}), ("slab_sort", {"distributed_sort": True})):
-        before = knn_select_coords.launches
+        before = launched("pct_select_coords")
         slabs[tag], w = walls(lambda: slab_curvature_unsorted(
             mesh, cloud, K_LIST, **kw), sync)
         per_rank = [None] * world
         dist.all_gather_object(
-            per_rank, (knn_select_coords.launches - before) // (1 + REPS))
+            per_rank,
+            (launched("pct_select_coords") - before) // (1 + REPS))
         rec[tag] = dict(wall=statistics.median(w[1:]), cold=w[0],
                         launches=per_rank)
     (c_r, n_r, e_r), (c_d, n_d, e_d) = slabs["slab"], slabs["slab_sort"]

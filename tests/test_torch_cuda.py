@@ -6,6 +6,8 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -31,8 +33,19 @@ from pct_tpu_torch.ops.select import (
     select_pos_plain,
     select_rows_plain,
 )
+from pct_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches() -> Counter:
+    """Kernel launches so far by entry point: the ``launches.<symbol>``
+    counters of ``trace.counters()`` as ``<symbol>``, a select's
+    ``launches.<symbol>.k<k>`` as ``<symbol>.k<k>``. The difference of
+    two readings counts the launches between them."""
+    return Counter({key.removeprefix("launches."): n
+                    for key, n in trace.counters().items()
+                    if key.startswith("launches.")})
 
 
 @pytest.fixture
@@ -74,10 +87,10 @@ def _tile(seed, T, C, M, dup=False, sparse=False):
 def test_select_coords_kernel_bit_identical(cuda, T, C, M, k, dup, sparse):
     ops = [torch.from_numpy(a).to(cuda)
            for a in _tile(T * C + M, T, C, M, dup, sparse)]
-    before = knn_select_coords.launches
+    before = _launches()
     d_k, n_k = knn_select_coords(*ops, k)
     torch.cuda.synchronize()
-    assert knn_select_coords.launches == before + 1
+    assert (_launches() - before)["pct_select_coords"] == 1
     d_p, n_p = select_coords_plain(*ops, k)
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
     assert torch.equal(n_k.view(torch.int32), n_p.view(torch.int32))
@@ -134,12 +147,14 @@ def test_select_ids_kernels_bit_identical(cuda, want, T, C, M, k, dup,
                                           empty):
     ops = [torch.from_numpy(a).to(cuda)
            for a in _ids_tile(T * C + M + k, T, C, M, dup, empty)]
-    kernel, plain = ((knn_select_rows, select_rows_plain) if want == "rows"
-                     else (knn_select, select_pos_plain))
-    before = kernel.launches
+    kernel, plain, symbol = (
+        (knn_select_rows, select_rows_plain, "pct_select_rows")
+        if want == "rows"
+        else (knn_select, select_pos_plain, "pct_select_pos"))
+    before = _launches()
     d_k, w_k = kernel(*ops, k)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert (_launches() - before)[symbol] == 1
     d_p, w_p = plain(*ops, k)
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
     assert torch.equal(w_k, w_p)
@@ -198,12 +213,14 @@ def test_select_ids_warp_design_cases(cuda, want, case):
     T, C, M, k, kw = IDS_CASES[case]
     ops = [torch.from_numpy(a).to(cuda)
            for a in _ids_tile(T * C + M + k, T, C, M, **kw)]
-    kernel, plain = ((knn_select_rows, select_rows_plain) if want == "rows"
-                     else (knn_select, select_pos_plain))
-    before = kernel.launches
+    kernel, plain, symbol = (
+        (knn_select_rows, select_rows_plain, "pct_select_rows")
+        if want == "rows"
+        else (knn_select, select_pos_plain, "pct_select_pos"))
+    before = _launches()
     d_k, w_k = kernel(*ops, k)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert (_launches() - before)[symbol] == 1
     d_p, w_p = plain(*ops, k)
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
     assert torch.equal(w_k, w_p)
@@ -247,10 +264,10 @@ def test_select_coords_warp_design_cases(cuda, case):
     T, C, M, k, kw = COORDS_CASES[case]
     ops = [torch.from_numpy(a).to(cuda)
            for a in _ids_tile(T * C + M + k, T, C, M, **kw)]
-    before = knn_select_coords.launches
+    before = _launches()
     d_k, n_k = knn_select_coords(*ops, k)
     torch.cuda.synchronize()
-    assert knn_select_coords.launches == before + 1
+    assert (_launches() - before)["pct_select_coords"] == 1
     d_p, n_p = select_coords_plain(*ops, k)
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
     assert torch.equal(n_k.view(torch.int32), n_p.view(torch.int32))
@@ -303,10 +320,10 @@ def test_moments_kernel_matches_plain(cuda, T, C, M, k, lattice, p_valid,
     ops = [torch.from_numpy(a).to(cuda)
            for a in _moment_tile(T * C + M + k, T, C, M, lattice, p_valid,
                                  empty)]
-    before = knn_moments.launches
+    before = _launches()
     got = knn_moments(*ops, k)
     torch.cuda.synchronize()
-    assert knn_moments.launches == before + 1
+    assert (_launches() - before)["pct_knn_moments"] == 1
     want = moments_plain(*ops, k)
     differing, ratio, _ = stats_agreement(got, want)
     assert differing == 0 and ratio <= 1.0, (differing, ratio)
@@ -339,10 +356,10 @@ def test_moments_warp_design_cases(cuda, case):
     T, C, M, k, kw = MOMENT_CASES[case]
     ops = [torch.from_numpy(a).to(cuda)
            for a in _moment_tile(T * C + M + k, T, C, M, **kw)]
-    before = knn_moments.launches
+    before = _launches()
     got = knn_moments(*ops, k)
     torch.cuda.synchronize()
-    assert knn_moments.launches == before + 1
+    assert (_launches() - before)["pct_knn_moments"] == 1
     want = moments_plain(*ops, k)
     differing, ratio, _ = stats_agreement(got, want)
     assert differing == 0 and ratio <= 1.0, (differing, ratio)
@@ -511,11 +528,11 @@ def test_band_select_kernel_bit_identical(cuda, case, mode):
            for a in _band_tile(seed, nb, bc, cap, band, **kw)]
     counts = (None if mode == "all_slots" else
               torch.from_numpy(_band_counts(seed, nb, bc, cap)).to(cuda))
-    before = knn_band_select.launches
+    before = _launches()
     d_k, r_k, c_k = knn_band_select(*ops, k=k, bc=bc, cap=cap, band=band,
                                     counts=counts)
     torch.cuda.synchronize()
-    assert knn_band_select.launches == before + 1
+    assert (_launches() - before)["pct_band_select"] == 1
     d_p, r_p, c_p = band_select_plain(*ops, k, bc, cap, band, counts)
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
     assert torch.equal(r_k, r_p)
@@ -592,7 +609,6 @@ def test_normals_card_vs_cpu(cuda, monkeypatch, k):
     card's normals have the CPU run's signs and directions to 1e-5."""
     import pct_tpu_torch.mesh.normals as tn
     from pct_tpu_torch.core import from_numpy
-    from pct_tpu_torch.ops.moments import knn_moments as mom
 
     monkeypatch.setattr(tn, "_HIER_THRESHOLD", 2000)
     pts = _torus_cloud(5000)
@@ -603,12 +619,15 @@ def test_normals_card_vs_cpu(cuda, monkeypatch, k):
     for kk, n in ((plan.kc, 1),
                   (plan.kv if k >= 32 else plan.k, len(plan.rows[0]))):
         want_rows[kk] = want_rows.get(kk, 0) + n
-    knn_select_rows.launches_by_k.clear()
-    before = mom.launches
+    before = _launches()
     got = tn.estimate_and_orient_normals(cloud, k=k,
                                          device=cuda)[:5000].cpu().numpy()
-    assert knn_select_rows.launches_by_k == want_rows
-    assert mom.launches - before == (len(plan.moments[0]) if k >= 32 else 0)
+    launched = _launches() - before
+    assert {key: n for key, n in launched.items()
+            if key.startswith("pct_select_rows.k")} == {
+        f"pct_select_rows.k{kk}": n for kk, n in want_rows.items()}
+    assert launched["pct_knn_moments"] == (len(plan.moments[0]) if k >= 32
+                                           else 0)
     want = tn.estimate_and_orient_normals(from_numpy(pts, device="cpu"), k=k,
                                           device="cpu")[:5000].numpy()
     dot = np.sum(got * want, axis=1)
@@ -663,15 +682,15 @@ def test_mesh_pipeline_card_vs_cpu(cuda):
     remainder would magnify rounding (measured on the card: 2.2e-4 of
     0.479, 8.6e-6 of the mass)."""
     from pct_tpu_torch.mesh import mesh_energies
-    from pct_tpu_torch.ops.moments import knn_moments as mom
     from pct_tpu_torch.pipeline import create_mesh_with_curvature
 
     pts = _torus_cloud(5000)
-    before = (mom.launches, knn_select_rows.launches,
-              knn_select_coords.launches)
+    before = _launches()
     got = create_mesh_with_curvature(pts, device=cuda)
-    assert mom.launches > before[0] and knn_select_rows.launches > before[1]
-    assert knn_select_coords.launches > before[2]
+    launched = _launches() - before
+    assert launched["pct_knn_moments"] > 0
+    assert launched["pct_select_rows"] > 0
+    assert launched["pct_select_coords"] > 0
     want = create_mesh_with_curvature(pts, device="cpu")
     face_set = [set(map(tuple, np.sort(r.faces, axis=1).tolist()))
                 for r in (got, want)]
@@ -702,7 +721,6 @@ def test_validate_cloud_card_vs_cpu(cuda, mode):
     ``test_mesh_pipeline_card_vs_cpu``)."""
     from pct_tpu_torch.core import from_numpy
     from pct_tpu_torch.mesh import mesh_energies
-    from pct_tpu_torch.ops.moments import knn_moments as mom
     from pct_tpu_torch.pipeline import create_mesh_with_curvature
     from pct_tpu_torch.pipeline import fast_curvature
     from pct_tpu_torch.shapes import generate_shape
@@ -717,13 +735,13 @@ def test_validate_cloud_card_vs_cpu(cuda, mode):
         pts, _ = generate_shape("sphere", 2000, radius=1.0)
         kw = dict(shape="sphere", radius=1.0, k_neighbors=12, auto_k=False,
                   outlier_filter=True)
-    before = (mom.launches, knn_select_rows.launches,
-              knn_select_coords.launches)
+    before = _launches()
     got = validate_cloud(pts, device=cuda, **kw)
-    assert knn_select_coords.launches > before[2]
+    launched = _launches() - before
+    assert launched["pct_select_coords"] > 0
     if mode == "mesh":
-        assert mom.launches > before[0]
-        assert knn_select_rows.launches > before[1]
+        assert launched["pct_knn_moments"] > 0
+        assert launched["pct_select_rows"] > 0
     want = validate_cloud(pts, device="cpu", **kw)
     assert got.aborted == want.aborted == ""
     assert got.nan_fraction == want.nan_fraction == 0.0
@@ -780,7 +798,6 @@ def test_sharded_curvature_world_of_one_bit_identical(card_mesh, k):
     from pct_tpu_torch.distributed import sharded_curvature
     from pct_tpu_torch.neighbors import cellknn
     from pct_tpu_torch.neighbors.grid import estimate_cell_size
-    from pct_tpu_torch.ops.moments import knn_moments as mom
     from pct_tpu_torch.pipeline import fused_curvature
     from pct_tpu_torch.pipeline.fused import SPLIT_TO, plan_engine
 
@@ -791,12 +808,12 @@ def test_sharded_curvature_world_of_one_bit_identical(card_mesh, k):
     assert engine == ("list" if k < 64 else "moments")
     kw = dict(bucket_spec=spec, max_cells=mc, engine=engine,
               split=(SPLIT_TO, factor))
-    counter = knn_select_coords if engine == "list" else mom
+    symbol = "pct_select_coords" if engine == "list" else "pct_knn_moments"
     launches = (cellknn.list_select_launches(spec) if engine == "list"
                 else len(spec))
-    before = counter.launches
+    before = _launches()
     got = sharded_curvature(card_mesh, c.points, c.num_points, cell, k, **kw)
-    assert counter.launches - before == launches
+    assert (_launches() - before)[symbol] == launches
     want = fused_curvature(c.points, c.num_points, cell, k, **kw)
     for a, b in zip((*got.curv, got.normals, got.exact, got.kth_dist),
                     (*want.curv, want.normals, want.exact, want.kth_dist)):
@@ -830,9 +847,9 @@ def test_slab_world_of_one_matches_fused(card_mesh):
     halo = probe_slab_halo(build_grid(c.points[:, list(order)], n, cell), 1)
     (sp,), _ = cellknn.all_points_spec(c.points.shape[0] + 2 * halo, 20)
     chunks = cellknn.list_select_launches([sp])
-    before = knn_select_coords.launches
+    before = _launches()
     curv, nrm, ex = slab_curvature_unsorted(card_mesh, c, k=20)
-    assert knn_select_coords.launches - before == chunks
+    assert (_launches() - before)["pct_select_coords"] == chunks
     curv_d, nrm_d, ex_d = slab_curvature_unsorted(card_mesh, c, k=20,
                                                   distributed_sort=True)
     for a, b in zip((*curv, nrm, ex), (*curv_d, nrm_d, ex_d)):
@@ -918,10 +935,10 @@ def test_moments_variant_kernel_matches_plain(cuda, mode, case, M, C):
     k = 64
     ops = [torch.from_numpy(a).to(cuda)
            for a in _variant_tile(len(mode) + 7, C=C, M=M, case=case)]
-    before = moments_variant.launches
+    before = _launches()
     got = moments_variant(*ops, k, mode=mode)
     torch.cuda.synchronize()
-    assert moments_variant.launches == before + 1
+    assert (_launches() - before)["pct_moments_variant"] == 1
     if C > M:   # the register path; 12 C slots (a shape only the C entry
         # takes) would not fit its shared memory and go to device memory
         assert variant_info(C, M, mode)["path"] in (6, 10)
@@ -991,10 +1008,10 @@ def test_select_coords_mxu_kernel_bit_identical(cuda, case, k, T, C, M):
     seed = k + len(case) + abs(C + M - 340)
     ops = [torch.from_numpy(a).to(cuda)
            for a in _mxu_tile(seed, T, C, M, case=case)]
-    before = select_coords_mxu.launches
+    before = _launches()
     got = select_coords_mxu(*ops, k, block_cells=4)
     torch.cuda.synchronize()
-    assert select_coords_mxu.launches == before + 1
+    assert (_launches() - before)["pct_select_coords_mxu"] == 1
     want = select_coords_mxu_plain(*ops, k)
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -1027,10 +1044,10 @@ def test_moments_like_kernel_bit_identical(cuda, T, C, M):
         np.float32)).to(cuda)
     y = torch.from_numpy(rng.standard_normal((T, M, 256)).astype(
         np.float32)).to(cuda)
-    before = moments_like.launches
+    before = _launches()
     got = moments_like(x, y)
     torch.cuda.synchronize()
-    assert moments_like.launches == before + 1
+    assert (_launches() - before)["pct_moments_like"] == 1
     want = moments_like_plain(x, y)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     # the arrival tickets are left zeroed: a second call finishes too
@@ -1090,10 +1107,10 @@ def test_epilogue_kernel_bit_identical(cuda):
     """The kernel against ``epilogue_plain`` run on the card: the same
     bits on every column, padding rows' NaNs included."""
     stats = _epilogue_rows(11).to(cuda)
-    before = moments_epilogue.launches
+    before = _launches()
     got = moments_epilogue(stats)
     torch.cuda.synchronize()
-    assert moments_epilogue.launches == before + 1
+    assert (_launches() - before)["pct_moments_epilogue"] == 1
     want = epilogue_plain(stats)
     assert torch.isnan(want[-9:-2, :5]).all()
     assert torch.equal(want[-2:, 5:].abs(), torch.tensor(
@@ -1139,10 +1156,10 @@ def torus_1m_epilogue():
 
     fused._moments_epilogue = spy
     try:
-        before = moments_epilogue.launches
+        before = _launches()
         res = fused.fast_curvature(cloud, 100)
         torch.cuda.synchronize()
-        launches = moments_epilogue.launches - before
+        launches = (_launches() - before)["pct_moments_epilogue"]
     finally:
         fused._moments_epilogue = orig
     kernels = {
@@ -1236,10 +1253,10 @@ def test_list_fit_kernel_bit_identical(cuda, k):
     buf = torch.empty(nbrs.numel() + 1, device=cuda)
     buf[1:] = nbrs.reshape(-1)
     for src in (nbrs, buf[1:].view(nbrs.shape)):
-        before = list_fit.launches
+        before = _launches()
         got = list_fit(src, q)
         torch.cuda.synchronize()
-        assert list_fit.launches == before + 1
+        assert (_launches() - before)["pct_list_fit"] == 1
         want = list_fit_plain(src, q)
         differing = (got.view(torch.int32) != want.view(torch.int32)).sum(0)
         assert differing.sum() == 0, differing.tolist()
@@ -1288,10 +1305,10 @@ def torus_1m_list():
 
     fused.list_fit = watched
     try:
-        before = list_fit.launches
+        before = _launches()
         res = fused.fast_curvature(cloud, 20)
         torch.cuda.synchronize()
-        launches = list_fit.launches - before
+        launches = (_launches() - before)["pct_list_fit"]
     finally:
         fused.list_fit = list_fit
     kernels = _kernel_names(lambda: fused.fast_curvature(cloud, 20))
@@ -1329,12 +1346,12 @@ def test_implicit_list_route_launches_no_list_fit(cuda):
     """The implicit method keeps the eager chain on the list engine."""
     import pct_tpu_torch.pipeline.fused as fused
     from pct_tpu_torch.core import from_numpy
-    from pct_tpu_torch.ops.list_fit import list_fit
 
     cloud = from_numpy(_torus_cloud(100_000), device="cuda")
-    before = (list_fit.launches, knn_select_coords.launches)
+    before = _launches()
     res = fused.fast_curvature(cloud, 20, "implicit")
     torch.cuda.synchronize()
-    assert knn_select_coords.launches > before[1]
-    assert list_fit.launches == before[0]
+    launched = _launches() - before
+    assert launched["pct_select_coords"] > 0
+    assert launched["pct_list_fit"] == 0
     assert torch.isfinite(res.curv.K[:cloud.num_points]).all()

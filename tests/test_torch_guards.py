@@ -1,5 +1,6 @@
 """Guards of the port: no JAX anywhere in it, CUDA by default with no
-quiet CPU fallback, TF32 off, and the slices of earlier refusals run."""
+quiet CPU fallback, TF32 off, the kernel launcher's operand checks, and
+the slices of earlier refusals run."""
 
 import ast
 import pathlib
@@ -255,6 +256,66 @@ def test_build_cache_keys_on_shared_headers(tmp_path, monkeypatch):
     assert third not in (first, second)
     (csrc / "band_select.cu").write_text("// another source\n")
     assert build.library_path("select_rows") == third
+
+
+@pytest.mark.parametrize("case", ["cpu", "meta", "int", "two_devices"])
+def test_kernel_launcher_refuses_before_loading(monkeypatch, case):
+    """``build.kernel``'s launcher checks its operands before it loads a
+    library, so each refusal raises ``ValueError`` with no nvcc, and
+    counts no launch."""
+    from pct_tpu_torch.ops import build
+    from pct_tpu_torch.utils import trace
+
+    def no_load(name):
+        raise AssertionError(f"{name} loaded before the operand checks")
+
+    monkeypatch.setattr(build, "load", no_load)
+    stats, out = torch.zeros(4, 48), torch.empty(4, 8)
+    meta = (stats.to("meta"), out.to("meta"))
+    operands, match = {
+        "cpu": ((stats, out, 4), "no epilogue kernel for device cpu"),
+        "meta": ((*meta, 4), "no epilogue kernel for device meta"),
+        "int": ((*meta, 2**31), "not a 32-bit int"),
+        "two_devices": ((stats, meta[1], 4), "2 devices"),
+    }[case]
+    before = trace.counters()
+    with pytest.raises(ValueError, match=match):
+        build.kernel("epilogue", "pct_moments_epilogue")(*operands)
+    assert trace.counters() == before
+
+
+@pytest.mark.parametrize("op", ["knn_moments", "list_fit",
+                                "moments_epilogue"])
+def test_cpu_paths_count_no_launch(op):
+    """On CPU tensors the wrappers run their plain versions: no
+    ``launches.*`` counter moves."""
+    from pct_tpu_torch.ops.epilogue import moments_epilogue
+    from pct_tpu_torch.ops.list_fit import list_fit
+    from pct_tpu_torch.ops.moments import knn_moments
+    from pct_tpu_torch.utils import trace
+
+    gen = torch.Generator().manual_seed(0)
+    tile = (torch.rand(1, 4, 3, generator=gen),
+            torch.rand(1, 8, 3, generator=gen),
+            torch.arange(8, dtype=torch.int32)[None],
+            torch.full((1, 4), -1, dtype=torch.int32),
+            torch.ones(1, 8, dtype=torch.int32))
+    call, shape = {
+        "knn_moments": (lambda: knn_moments(*tile, 3), (1, 4, 48)),
+        "list_fit": (lambda: list_fit(torch.rand(4, 5, 3, generator=gen),
+                                      torch.rand(4, 3, generator=gen)),
+                     (4, 8)),
+        "moments_epilogue": (
+            lambda: moments_epilogue(knn_moments(*tile, 3)[0]), (4, 8)),
+    }[op]
+
+    def launches():
+        return {key: n for key, n in trace.counters().items()
+                if key.startswith("launches.")}
+
+    before = launches()
+    assert tuple(call().shape) == shape
+    assert launches() == before
 
 
 def test_facade_cli_and_demos_leave_matplotlib_unloaded():

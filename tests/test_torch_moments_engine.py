@@ -17,9 +17,9 @@ from pct_tpu.neighbors.grid import estimate_cell_size as jax_cell_size
 from pct_tpu_torch.core import from_reference_arrays
 from pct_tpu_torch.neighbors import cellknn
 from pct_tpu_torch.neighbors.grid import build_grid
-from pct_tpu_torch.ops.moments import knn_moments
 from pct_tpu_torch.pipeline import fused_curvature, plan_engine
 from pct_tpu_torch.shapes import generate_shape
+from pct_tpu_torch.utils import trace
 from tests.test_torch_moments import _public_paths_agree
 
 
@@ -137,6 +137,7 @@ def test_fast_curvature_takes_moments_where_jax_does():
     engine, spec, _, factor = plan_engine(grid, k)
     assert engine == "moments" and state.bucket_spec == spec
     assert state.split_factor == factor > 1
-    before = knn_moments.launches
+    before = trace.counters().get("launches.pct_knn_moments", 0)
     _public_paths_agree(pts, k)
-    assert knn_moments.launches == before      # CPU tensors: no kernel
+    # CPU tensors: no kernel
+    assert trace.counters().get("launches.pct_knn_moments", 0) == before

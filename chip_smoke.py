@@ -26,6 +26,13 @@ without printing its result line:
       B a row); the sharded, slab, vertex and k=1100 list calls below
       hold the kernel to its plain version the same way (k=1100 on the
       first 2048 rows), and the implicit k=20 call launches it never;
+   c. (run before b) the run table of that grid: ``_runs_table``'s run
+      starts and lengths with the suffix-min kernel equal to those with
+      ``suffix_min_plain`` on the card, the kernel's table bit-identical
+      to the plain version's, then timed beside the plain version,
+      ``torch.cummin`` and its bytes bound (8 B a box); every driven
+      path below counts its launches, one of each pass a dense run table
+      (two tables a cell-loop entry: the probe's and the cells');
 4. the moments engine, k=100, on the same cloud:
    a. the moments kernel against its plain version on every bucket of
       ``fast_curvature``'s own probe: columns 35–45 bit-identical, the
@@ -732,6 +739,70 @@ def list_fit_vs_plain(call, label, want, timed=False, max_rows=None):
     return rec, max_err
 
 
+RUN_TABLE_BOX_BYTES = 8          # a box's int32 read once, written once
+
+
+def tables(t):
+    """The run-table kernel's launches for ``t`` dense run tables a call:
+    one of each pass (tile minima, then the scan) a table."""
+    return {"run_table": t, "run_table_scan": t}
+
+
+def run_table_vs_plain(cellknn, grid, cells):
+    """Phase 3c: the run table of the main path's grid. ``_runs_table``
+    once with the kernel and once with ``suffix_min_plain`` in its place,
+    on the card: equal run starts and lengths (integers). The table the
+    kernel was handed, against ``suffix_min_plain`` bit for bit, then the
+    kernel timed on it beside the plain version, ``torch.cummin`` of the
+    pre-flipped table and the bytes bound (8 B a box). Returns (record,
+    max abs error)."""
+    import torch
+
+    from pct_tpu_torch.ops.run_table import suffix_min_, suffix_min_plain
+
+    real = cellknn.suffix_min_
+    seen = []
+
+    def watched(t):
+        seen.append(t.clone())
+        return real(t)
+
+    cellknn.suffix_min_ = watched
+    try:
+        rs, run_len = cellknn._runs_table(grid, cells)
+        cellknn.suffix_min_ = lambda t: t.copy_(suffix_min_plain(t))
+        rs_p, run_len_p = cellknn._runs_table(grid, cells)
+    finally:
+        cellknn.suffix_min_ = real
+    torch.cuda.synchronize()
+    check(len(seen) == 1, "the main path's grid takes the dense run table")
+    check(torch.equal(rs, rs_p) and torch.equal(run_len, run_len_p),
+          "_runs_table: run starts and lengths equal with the kernel and "
+          "with the plain suffix-min")
+    (table,) = seen
+    got, want = suffix_min_(table.clone()), suffix_min_plain(table)
+    differing = int((got != want).sum())
+    max_err = float((got.long() - want.long()).abs().max())
+    boxes = table.numel()
+    nb = boxes * RUN_TABLE_BOX_BYTES
+    b_ms, b_by = bound(0, 0, 0, nb)
+    work, flipped = table.clone(), torch.flip(table, [0])
+    rec = dict(bucket=0, cells=0, capacity=0, M=0, pairs=0, rows=boxes,
+               bytes=nb, bound_ms=b_ms, bound_by=b_by,
+               ms=device_ms(lambda: suffix_min_(work), TIMED_REPS),
+               plain_ms=event_ms(lambda: suffix_min_plain(table), 3),
+               library_ms=event_ms(lambda: torch.cummin(flipped, 0), 3))
+    log(f"run table kernel vs plain on the k={K_LIST} grid {grid.dims}: "
+        f"{boxes} boxes, {int(cells.num_cells)} cells, differing boxes "
+        f"{differing}; kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.3f} ms, torch.cummin {rec['library_ms']:.3f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}, {RUN_TABLE_BOX_BYTES} B a box)")
+    check(differing == 0, "run table kernel bit-identical to its plain "
+          "version on the main path's table")
+    del seen, table, got, want, work, flipped
+    return rec, max_err
+
+
 def read_counts(counters, since):
     """The launches of each kernel in ``counters`` (name -> entry point
     symbol) since the ``trace.counters()`` reading ``since``, and for
@@ -1185,7 +1256,8 @@ def band_phase(label, cloud, counters, none):
     res, walls, launches = drive(
         lambda: knn_cellwise_band(grid, cells, blocks, k, cap, bc=bc,
                                   band=band, lean=False),
-        f"knn_cellwise_band k={k}", counters, {**none, "band_select": 1})
+        f"knn_cellwise_band k={k}", counters,
+        {**none, "band_select": 1, **tables(0)})
     rows_res = cellknn.knn_cellwise(grid, cells, k, capacity=cap,
                                     cand_cap=cand_cap, original_ids=False)
     exact = float(res.exact[:n].float().mean())
@@ -1347,7 +1419,8 @@ def normals_phase(label, cloud, pts, counters, none):
         lambda: estimate_and_orient_normals(cloud, k=K_NORMALS),
         f"estimate_and_orient_normals k={k}", counters,
         {**none, "moments": len(spec_m), "select_rows": len(spec_v) + 1,
-         "epilogue": 1}, want_by_k={"select_rows": {kv: len(spec_v), kc: 1}})
+         "epilogue": 1, **tables(5)},
+        want_by_k={"select_rows": {kv: len(spec_v), kc: 1}})
     by_k = read_counts(counters, since)[1]["select_rows"]
     got = nrm[:n].cpu().numpy()
     agree = tube_normal_agreement(got, pts)
@@ -1435,7 +1508,8 @@ def vertex_curvature_phase(label, verts, counters, none):
     n_sel = cellknn.list_select_launches(spec)
     res, walls, launches = drive(
         lambda: fast_curvature(cloud, k), f"fast_curvature k={k} mesh vertices",
-        counters, {**none, "select_coords": n_sel, "list_fit": n_sel},
+        counters, {**none, "select_coords": n_sel, "list_fit": n_sel,
+                   **tables(2)},
         want_by_k={"select_coords": {k: n_sel}})
     list_fit_vs_plain(lambda: fast_curvature(cloud, k),
                       f"fast_curvature k={k} mesh vertices", n_sel)
@@ -1646,7 +1720,7 @@ def mesh_path_phase(label, pts, counters, none):
     n_sel = cellknn.list_select_launches(spec)
     want = {**none, "moments": len(spec_m), "epilogue": 1,
             "select_rows": len(spec_v) + 1, "select_coords": n_sel,
-            "list_fit": n_sel}
+            "list_fit": n_sel, **tables(7)}
     log(f"mesh path launches: {launches}; select_rows by k "
         f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}")
     check(launches == want, f"mesh path launches {launches}, want {want}")
@@ -1796,7 +1870,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     n_sel = cellknn.list_select_launches(spec_v)
     want = {**none, "moments": n_mom, "epilogue": 1,
             "select_rows": n_voters + 1, "select_coords": n_sel,
-            "list_fit": n_sel}
+            "list_fit": n_sel, **tables(7)}
     log(f"sweep row launches: {launches}; select_rows by k "
         f"{by_k['select_rows']}, select_coords by k {by_k['select_coords']}"
         f" (the row's smoothed vertices: {len(spec_v)} buckets)")
@@ -1824,7 +1898,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
     wall_b = time.perf_counter() - t0
     launches, _ = read_counts(counters, since)
     n_sel = cellknn.list_select_launches(spec20)
-    want = {**none, "select_coords": n_sel, "list_fit": n_sel}
+    want = {**none, "select_coords": n_sel, "list_fit": n_sel, **tables(2)}
     log(f"[{label}] validate_cloud(auto_k=True, use_mesh=False, k="
         f"{K_LIST}), 1M torus: converged k {res.converged_k} (study kmax "
         f"{res.study_kmax}, converged fraction {res.converged_fraction}), "
@@ -1874,7 +1948,7 @@ def validation_phase(label, pts, counters, none, phase8, n20, n100):
         torch.cuda.synchronize()
         wall_c = time.perf_counter() - t0
         launches, _ = read_counts(counters, since)
-    want = {**none, "moments": 2 * n100, "epilogue": 2}
+    want = {**none, "moments": 2 * n100, "epilogue": 2, **tables(4)}
     for sr in scan_rows:
         log(f"[{label}] run_scans row {sr['run']}: {sr['status']}, "
             f"{sr['num_points']} points, converged k {sr['converged_k']} "
@@ -1966,9 +2040,10 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
         kw = dict(bucket_spec=spec, max_cells=mc, engine=engine,
                   split=(SPLIT_TO, factor))
         want = ({**none, "select_coords": list_select_launches(spec),
-                 "list_fit": list_select_launches(spec)}
+                 "list_fit": list_select_launches(spec), **tables(1)}
                 if engine == "list"
-                else {**none, "moments": len(spec), "epilogue": 1})
+                else {**none, "moments": len(spec), "epilogue": 1,
+                      **tables(1)})
         res, w, got = drive(
             lambda: sharded_curvature(mesh, cloud.points, n, cell, k, **kw),
             f"{tag} sharded_curvature k={k}", counters, want)
@@ -2017,7 +2092,7 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
             lambda: slab_curvature_unsorted(mesh, cloud, K_LIST, **kw),
             f"{tag} slab_curvature_unsorted k={K_LIST}", counters,
             {**none, "select_coords": list_select_launches(slab_spec),
-             "list_fit": list_select_launches(slab_spec)})
+             "list_fit": list_select_launches(slab_spec), **tables(1)})
         launches[tag], walls[tag], outs[tag] = got, w, out
         log(f"[{label}] {tag} slab_curvature_unsorted k={K_LIST} {kw}: warm "
             f"wall {statistics.median(w[1:]):.4f} s/call (cold {w[0]:.3f} s)")
@@ -2033,7 +2108,8 @@ def distributed_phase(label, cloud, pts, counters, none, walls20, walls100):
         f"10c un-bucketed fused_curvature k={K_LIST}", counters,
         {**none, "select_coords": list_select_launches(
             all_points_spec(cap, K_LIST)[0]),
-         "list_fit": list_select_launches(all_points_spec(cap, K_LIST)[0])})
+         "list_fit": list_select_launches(all_points_spec(cap, K_LIST)[0]),
+         **tables(1)})
     e_s, e_1 = ex_r[:n], single.exact[:n]
     K_s, K_1 = curv_r.K[:n], single.curv.K[:n]
     close = torch.isclose(K_s, K_1, rtol=1e-5, atol=1e-7)
@@ -2365,7 +2441,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
 
     # --- 12a. the façade ---
     pc = counted("construction", lambda: compat.PointCloud(
-        points=pts, k_neighbors=K_LIST), {}, warm=1)
+        points=pts, k_neighbors=K_LIST), tables(0), warm=1)
     check(pc.cloud.points.device.type == "cuda" and pc.num_points == n,
           "the façade's cloud lives on the card")
     p64 = pts.astype(np.float64)
@@ -2383,7 +2459,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
         return idx, d, K, H
 
     idx, d, K, H = counted("plant_kdtree + explicit", plant_and_fit,
-                           {"select_rows": n_knn20}, warm=1)
+                           {"select_rows": n_knn20, **tables(2)}, warm=1)
     check(isinstance(idx, np.ndarray) and idx.shape == (n, K_LIST)
           and isinstance(K, np.ndarray), "numpy attributes of (n, k)")
     check(np.array_equal(idx, idx_5b) and np.array_equal(d, d_5b),
@@ -2401,7 +2477,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
           "explicit chain: fit normals bit-identical to phase 5c")
 
     K, H = counted("implicit", pc.compute_pointwise_implicit_quadric_curvature,
-                   {})
+                   tables(0))
     med_K = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
     med_H = float(np.median(np.abs(np.abs(H) - np.abs(Ha)) / np.abs(Ha)))
     log(f"façade implicit k={K_LIST} (exact): NaN {int(np.isnan(K).sum())}, "
@@ -2414,7 +2490,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
 
     k1, k2 = counted("pca", lambda: pc.
                      principal_curvatures_via_principal_component_analysis(
-                         K_LIST), {"select_rows": n_knn20})
+                         K_LIST), {"select_rows": n_knn20, **tables(2)})
     check(k1.shape == (n,) and not np.isnan(k1).any()
           and not np.isnan(k2).any() and bool((k1 >= k2).all()),
           "PCA: k1 >= k2, no NaN")
@@ -2422,7 +2498,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
     plan = nm.plan_normals(pc.cloud.points, n, K_NORMALS)
     kv, kc = plan.kv, plan.kc
     want_n = {"moments": len(plan.moments[0]), "epilogue": 1,
-              "select_rows": len(plan.rows[0]) + 1}
+              "select_rows": len(plan.rows[0]) + 1, **tables(5)}
     want_k = {"select_rows": {kv: len(plan.rows[0]), kc: 1}}
     log(f"façade normals k={K_NORMALS}: stride {plan.stride} (phase 7a's "
         f"cloud: {nm.plan_normals(cloud.points, n, K_NORMALS).stride}), "
@@ -2443,7 +2519,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
         tmp = Path(tmp)
         path = str(tmp / "facade.ply")
         counted("export", lambda: pc.export_ply_with_curvature_and_normals(
-            path), {})
+            path), tables(0))
         back = tio.read_ply(path)
         check(close_to_ascii(back.points, pc.points)
               and close_to_ascii(back.normals, pc.normals)
@@ -2456,7 +2532,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
 
         n100 = len(knn_buckets(pc.cloud.points, n, K_MOM))
         sv = counted("estimate_curvature", lambda: compat.estimate_curvature(
-            pts), {"select_rows": n100})
+            pts), {"select_rows": n100, **tables(2)})
         log(f"estimate_curvature(k={K_MOM}): {n100} rows launches, min "
             f"{float(sv.min()):.4e}, median {float(np.median(sv)):.4e}")
         check(sv.shape == (n,) and not np.isnan(sv).any()
@@ -2464,7 +2540,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
         del sv, pc
 
         ds = counted("downsample=True", lambda: compat.PointCloud(
-            points=pts, downsample=True, voxel_size=VOXEL), {})
+            points=pts, downsample=True, voxel_size=VOXEL), tables(0))
         log(f"PointCloud(downsample=True, voxel {VOXEL}): {ds.num_points} "
             f"kept, phase 7c's first mode {len(ds_7c)}")
         check(ds.num_points == len(ds_7c) and np.array_equal(ds.points, ds_7c),
@@ -2492,7 +2568,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
         try:
             counted("cli curvature", lambda: cli.main(
                 ["curvature", inp, out, "--k", str(K_LIST)]),
-                {"select_rows": n_knn20})
+                {"select_rows": n_knn20, **tables(2)})
         finally:
             tio.load_points, tio.write_ply = saved
         io_s["compute"] = walls["cli curvature"][0] - io_s["read"] \
@@ -2504,7 +2580,8 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
               "cli curvature: points, K and H read back equal phase 5c's")
         del back
         counted("cli downsample", lambda: cli.main(
-            ["downsample", inp, out_ds, "--voxel-size", str(VOXEL)]), {})
+            ["downsample", inp, out_ds, "--voxel-size", str(VOXEL)]),
+            tables(0))
         back = tio.read_ply(out_ds).points
         check(back.shape == ds_7c.shape and close_to_ascii(back, ds_7c),
               "cli downsample: the rows written equal phase 7c's")
@@ -2512,7 +2589,7 @@ def facade_phase(label, cloud, pts, counters, none, n_knn20):
     # --- 12c. the demos, on the card against the CPU ---
     for name, mod in (("explicit demo", explicit_surfaces_demo),
                       ("implicit demo", implicit_surfaces_demo)):
-        got = counted(name, mod.run, {})
+        got = counted(name, mod.run, tables(0))
         want = mod.run(device="cpu")
         diff = max(abs(a - b) for key in want
                    for a, b in zip(got[key], want[key]))
@@ -2748,7 +2825,7 @@ def wide_k_phase(label, cloud, pts, counters, none):
     # --- 14b. the entry points at k = 200 ---
     k = K_WIDE
     nk = len(out["spec"])
-    want = {**none, "select_rows": nk}
+    want = {**none, "select_rows": nk, **tables(2)}
     by_k = {"select_rows": {k: nk}}
     knn, out["walls"]["knn_cloud_grid"], launches = drive(
         lambda: knn_cloud_grid(cloud, k)[0], f"knn_cloud_grid k={k}",
@@ -2773,7 +2850,8 @@ def wide_k_phase(label, cloud, pts, counters, none):
     del grid
     imp, out["walls"]["implicit"], _ = drive(
         lambda: fast_curvature(cloud, k, method="implicit"),
-        f"implicit k={k}", counters, want, warm=2, want_by_k=by_k)
+        f"implicit k={k}", counters, {**want, **tables(3)}, warm=2,
+        want_by_k=by_k)
     out["implicit_err"] = implicit_accuracy(imp, cloud, pts, k)
     check(bool((imp.kth_dist[:n] == knn.dists[:n, -1]).all()),
           f"implicit k={k}: kth distance is knn_cloud_grid's")
@@ -2802,7 +2880,7 @@ def wide_k_phase(label, cloud, pts, counters, none):
     sv, out["walls"]["estimate_curvature"], _ = drive(
         lambda: compat.estimate_curvature(pts, max_neighbors=k),
         f"estimate_curvature max_neighbors={k}", counters,
-        {**none, "select_rows": n_est}, warm=1,
+        {**none, "select_rows": n_est, **tables(2)}, warm=1,
         want_by_k={"select_rows": {k_est: n_est}})
     ref = knn_cloud_grid(fc, k_est)[0]
     want_sv = surface_variation(fc.points, ref.indices[:n]).cpu().numpy()
@@ -2824,7 +2902,7 @@ def wide_k_phase(label, cloud, pts, counters, none):
     del grid
     big, walls, _ = drive(
         lambda: knn_cloud_grid(cloud, k)[0], f"knn_cloud_grid k={k}",
-        counters, {**none, "select_rows": len(spec1024)}, warm=0,
+        counters, {**none, "select_rows": len(spec1024), **tables(2)}, warm=0,
         want_by_k={"select_rows": {k: len(spec1024)}})
     out["walls"]["knn_cloud_grid k=1024"] = walls
     out_bytes = nbytes(big.indices, big.dists)
@@ -2976,7 +3054,7 @@ def huge_k_phase(label, cloud, pts, counters, none):
     torch.cuda.reset_peak_memory_stats()
     big, walls, launches = drive(
         lambda: knn_cloud_grid(cloud, k)[0], f"knn_cloud_grid k={k}",
-        counters, {**none, "select_rows": nk}, warm=0,
+        counters, {**none, "select_rows": nk, **tables(2)}, warm=0,
         want_by_k={"select_rows": {k: nk}})
     out["walls"][f"knn_cloud_grid k={k}"] = walls
     out["launches"] = launches["select_rows"]
@@ -3000,7 +3078,7 @@ def huge_k_phase(label, cloud, pts, counters, none):
     k = K_HUGE
     Ka, _ = analytic_curvatures("torus", pts)
     n_knn = len(knn_layout(cloud, k)[2])
-    want = {**none, "select_rows": n_knn}
+    want = {**none, "select_rows": n_knn, **tables(2)}
     by_k = {"select_rows": {k: n_knn}}
     grid = build_grid(cloud.points, n, estimate_cell_size(cloud.points, n, k))
     probe, mc = cellknn.probe_grid_buckets(grid, capacity_cap=max(256, 4 * k))
@@ -3009,7 +3087,8 @@ def huge_k_phase(label, cloud, pts, counters, none):
           f"implicit k={k} takes the staged route (knn_cloud_grid)")
     imp, out["walls"]["implicit"], _ = drive(
         lambda: fast_curvature(cloud, k, method="implicit"),
-        f"implicit k={k}", counters, want, warm=1, want_by_k=by_k)
+        f"implicit k={k}", counters, {**want, **tables(3)}, warm=1,
+        want_by_k=by_k)
     out["implicit_err"] = implicit_accuracy(imp, cloud, pts, k)
     del imp
 
@@ -3032,7 +3111,7 @@ def huge_k_phase(label, cloud, pts, counters, none):
         lambda: compat.estimate_curvature(pts, k_fraction=frac,
                                           max_neighbors=k),
         f"estimate_curvature max_neighbors={k}", counters,
-        {**none, "select_rows": n_est}, warm=1,
+        {**none, "select_rows": n_est, **tables(2)}, warm=1,
         want_by_k={"select_rows": {k_est: n_est}})
     ref = knn_cloud_grid(fc, k_est)[0]
     want_sv = surface_variation(fc.points, ref.indices[:n]).cpu().numpy()
@@ -3053,7 +3132,8 @@ def huge_k_phase(label, cloud, pts, counters, none):
         lambda: fused_curvature(cloud.points, n, cell, k, bucket_spec=probe,
                                 max_cells=mc, engine="list"),
         f"fused_curvature(engine='list') k={k}", counters,
-        {**none, "select_coords": n_sel, "list_fit": n_sel}, warm=1,
+        {**none, "select_coords": n_sel, "list_fit": n_sel, **tables(1)},
+        warm=1,
         want_by_k={"select_coords": {k: n_sel}})
     list_fit_vs_plain(
         lambda: fused_curvature(cloud.points, n, cell, k, bucket_spec=probe,
@@ -3078,7 +3158,7 @@ def huge_k_phase(label, cloud, pts, counters, none):
     del grid
     mom, out["walls"][f"fast_curvature k={k}"], _ = drive(
         lambda: fast_curvature(cloud, k), f"fast_curvature k={k}", counters,
-        {**none, "moments": len(spec), "epilogue": 1}, warm=1)
+        {**none, "moments": len(spec), "epilogue": 1, **tables(2)}, warm=1)
     K = mom.curv.K[:n].cpu().numpy()
     out["moments_err"] = float(np.median(np.abs(K - Ka) / np.abs(Ka).max()))
     log(f"fast_curvature k={k} (moments, {len(spec)} buckets): exact "
@@ -3178,7 +3258,9 @@ def main():
                 "moments_split": "pct_moments_variant",
                 "select_coords_mxu": "pct_select_coords_mxu",
                 "moments_like": "pct_moments_like",
-                "epilogue": "pct_moments_epilogue", "list_fit": "pct_list_fit"}
+                "epilogue": "pct_moments_epilogue", "list_fit": "pct_list_fit",
+                "run_table": "pct_run_table_tile_min",
+                "run_table_scan": "pct_run_table_suffix_min"}
     none = {name: 0 for name in counters}
 
     # --- 3. list engine, k=20 ---
@@ -3191,11 +3273,12 @@ def main():
         f"{[tuple(s) for s in spec20]}")
     sel_buckets, sel_err = select_vs_plain(
         cellknn, grid, cellknn.compact_cells(grid, mc20), spec20, K_LIST)
+    rt = run_table_vs_plain(cellknn, grid, cellknn.compact_cells(grid, mc20))
     res20, walls20, launches20 = drive(
         lambda: fast_curvature(cloud, K_LIST), f"fast_curvature k={K_LIST}",
         counters,
         {**none, "select_coords": cellknn.list_select_launches(spec20),
-         "list_fit": cellknn.list_select_launches(spec20)})
+         "list_fit": cellknn.list_select_launches(spec20), **tables(2)})
     lf = list_fit_vs_plain(lambda: fast_curvature(cloud, K_LIST),
                            f"fast_curvature k={K_LIST}",
                            cellknn.list_select_launches(spec20), timed=True)
@@ -3219,7 +3302,8 @@ def main():
     del cells
     res100, walls100, launches100 = drive(
         lambda: fast_curvature(cloud, K_MOM), f"fast_curvature k={K_MOM}",
-        counters, {**none, "moments": len(spec100), "epilogue": 1})
+        counters, {**none, "moments": len(spec100), "epilogue": 1,
+                   **tables(2)})
     accuracy(res100, cloud, pts, K_MOM, 1.0e-3)
     kth_vs_bruteforce(res100, cloud, K_MOM)
     del res100
@@ -3271,7 +3355,7 @@ def main():
 
     knn20, walls_knn, launches_knn = drive(
         lambda: knn_cloud_grid(cloud, K_LIST)[0], f"knn_cloud_grid k={K_LIST}",
-        counters, {**none, "select_rows": len(spec_knn)})
+        counters, {**none, "select_rows": len(spec_knn), **tables(2)})
     log(f"knn_cloud_grid k={K_LIST}: exact {float(knn20.exact[:n].float().mean())}"
         f", valid {float(knn20.valid[:n].float().mean())}")
     check(bool(knn20.exact[:n].all()) and bool(knn20.valid[:n].all()),
@@ -3285,7 +3369,7 @@ def main():
     pipe20, walls_pipe, _ = drive(
         lambda: curvature_pipeline(cloud, K_LIST),
         f"curvature_pipeline k={K_LIST}", counters,
-        {**none, "select_rows": len(spec_knn)})
+        {**none, "select_rows": len(spec_knn), **tables(2)})
     fast20 = fast_curvature(cloud, K_LIST)
     e = fast20.exact[:n]
     K_f, K_s = fast20.curv.K[:n][e], pipe20.curv.K[:n][e]
@@ -3300,7 +3384,8 @@ def main():
     imp20, walls_imp20, launches_imp20 = drive(
         lambda: fast_curvature(cloud, K_LIST, method="implicit"),
         f"implicit k={K_LIST}", counters,
-        {**none, "select_coords": cellknn.list_select_launches(spec20)})
+        {**none, "select_coords": cellknn.list_select_launches(spec20),
+         **tables(2)})
     log(f"implicit k={K_LIST}: {launches_imp20['list_fit']} list_fit "
         f"launches (the eager chain), {launches_imp20['select_coords']} "
         "coords launches")
@@ -3309,7 +3394,7 @@ def main():
     imp100, walls_imp100, launches_imp100 = drive(
         lambda: fast_curvature(cloud, K_MOM, method="implicit"),
         f"implicit k={K_MOM}", counters,
-        {**none, "select_rows": len(spec_knn100)}, warm=2)
+        {**none, "select_rows": len(spec_knn100), **tables(3)}, warm=2)
     imp100_err = implicit_accuracy(imp100, cloud, pts, K_MOM)
     del imp100
 
@@ -3433,6 +3518,18 @@ def main():
                                 "a row (its operations are not counted)")
     rows[-1]["library_call"] = ("none: the eager neighbourhood chain it "
                                 "replaces is the implicit method's")
+    rt_rec, rt_err = rt
+    rows.append(kernel_row("run_table", "pct_tpu_torch/csrc/run_table.cu",
+                           "pct_tpu/neighbors/cellknn.py:354",
+                           launches20["run_table"]
+                           + launches20["run_table_scan"], rt_err, [rt_rec],
+                           flops=0))
+    rows[-1]["rows"] = rt_rec["rows"]
+    rows[-1]["bound_counts"] = (f"bytes only, {RUN_TABLE_BOX_BYTES} B a box "
+                                "(read once, written once)")
+    rows[-1]["library_call"] = ("torch.cummin of the pre-flipped table "
+                                "(partial: no flips; it also writes int64 "
+                                "indices)")
     rows[1]["max_err_ratio"] = mom_ratio
     # k=100: the rows kernel on the implicit k=100 path (knn_cloud_grid's
     # k=100 buckets), the positions kernel on the same operands

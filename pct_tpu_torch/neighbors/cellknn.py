@@ -38,6 +38,7 @@ import torch
 from pct_tpu_torch.neighbors.grid import MAXDIM, PAD_ID, GridIndex
 from pct_tpu_torch.neighbors.knn import NeighborResult
 from pct_tpu_torch.ops.moments import knn_moments
+from pct_tpu_torch.ops.run_table import suffix_min_
 from pct_tpu_torch.ops.select import knn_select, knn_select_coords, knn_select_rows
 from pct_tpu_torch.utils import trace as _trace
 
@@ -158,8 +159,9 @@ def _runs_table(grid: GridIndex, cells: CellTable):
     wanted id. When the grid's cell-box count fits the dense table this
     is a direct lookup: scatter each occupied cell's start row into a
     table over compressed keys x + dims0·(y + dims1·z) (start rows are
-    monotone in key), reverse-cummin to fill empty boxes with the next
-    occupied cell's start, then gather every boundary. Larger grids take
+    monotone in key), suffix-min (``ops.run_table``) to fill empty
+    boxes with the next occupied cell's start, then gather every
+    boundary. Larger grids take
     a searchsorted over the compact table. Boundaries clamp to num_valid
     so runs never reach into the padding rows.
 
@@ -193,10 +195,9 @@ def _runs_table(grid: GridIndex, cells: CellTable):
         table = torch.full((dense_cap + 1,), nv, dtype=_I32, device=dev)
         table.scatter_reduce_(0, torch.where(pad, dense_cap, ckey).long(),
                               cells.start, reduce="amin")
-        table = table[:dense_cap]
         # start rows are monotone in key -> suffix-min = "start of the
         # first occupied cell at-or-after this box"
-        table = torch.flip(torch.cummin(torch.flip(table, [0]), 0).values, [0])
+        table = suffix_min_(table[:dense_cap])
         row = d0 * (ny_a + d1 * nz_a)                          # (MC, 9)
         q_lo = row + x_lo
         q_hi1 = row + x_hi + 1

@@ -106,17 +106,19 @@ def _list_route(method: str, implicit_mode: str):
 
 @functools.cache
 def _build_moments_route():
-    """Compile the moments route's two kernels, the moments kernel and
-    its epilogue, in one parallel nvcc batch (on a cold build cache each
-    op's loader would otherwise build its own in turn)."""
-    build.build_all(["moments", "epilogue"])
+    """Compile the moments route's kernels, the moments kernel, its
+    epilogue and the run table's suffix-min, in one parallel nvcc batch
+    (on a cold build cache each op's loader would otherwise build its
+    own in turn)."""
+    build.build_all(["moments", "epilogue", "run_table"])
 
 
 @functools.cache
 def _build_list_route():
-    """Compile the explicit list route's two kernels, the coords select
-    and the list fit, in one parallel nvcc batch."""
-    build.build_all(["select_coords", "list_fit"])
+    """Compile the explicit list route's kernels, the coords select, the
+    list fit and the run table's suffix-min, in one parallel nvcc
+    batch."""
+    build.build_all(["select_coords", "list_fit", "run_table"])
 
 
 @_trace.stage("fit")
@@ -267,6 +269,11 @@ def fast_curvature(cloud, k: int = 20, method: str = "explicit",
     cell = estimate_cell_size(points, n, k)
     grid = build_grid(points, n, cell)
     if method == "explicit":
+        if grid.sorted_points.is_cuda:
+            # the likely route's kernels with the probe's run table, in
+            # one nvcc batch before the probe needs its table
+            (_build_list_route if k < MOMENTS_MIN_K
+             else _build_moments_route)()
         engine, spec, mc, factor = plan_engine(grid, k)
         return _fused_on_grid(grid, k, mc, spec, engine, (SPLIT_TO, factor))
     spec, mc = probe_grid_buckets(grid, capacity_cap=max(256, 4 * k))
